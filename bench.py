@@ -9,8 +9,10 @@ BASELINE.md ladder 4 actually names (silhouette tiles with concentrated
 pair loads), tracked round-over-round since round 3.
 
 Timing + overflow audit live in splat_tpu/utils/benchmark.py (shared with
-`python -m splat_tpu bench`).  Extra detail goes to stderr so the
-one-line stdout contract holds.
+`python -m splat_tpu bench`).  Extra detail, including the device (JAX
+platform, kind and count, card name and power limit), goes to stderr so
+the one-line stdout contract holds.  Runs on the GPU only: on any other
+platform it fails before printing a result.
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ def run_scene(kind: str, n: int, h: int, w: int, frames: int,
     # Tuned per-scene capacity: every K-sized binning op scales with
     # k_cap, and the audit PROVES no frame of the sweep overflowed (the
     # score is zeroed otherwise, so a too-tight setting can never fake a
-    # speedup).  random: ~2.02 pairs/gaussian over the sweep; surface:
-    # ~1.32 (opaque surface splats are small on screen).
+    # speedup).  At 16-px tiles: random ~3.46 pairs/gaussian; surface
+    # ~1.70 (opaque surface splats are small on screen).
     config = RenderConfig(max_dup_factor=dup)
     if kind == "surface":
         scene = st.surface_scene(n, seed=0).pack_device()
@@ -59,7 +61,12 @@ def run_scene(kind: str, n: int, h: int, w: int, frames: int,
 
 
 def main() -> None:
+    from splat_tpu.utils.benchmark import require_gpu
     from splat_tpu.utils.compilecache import enable_persistent_cache
+
+    device = require_gpu()
+    print(f"[bench] device: {device['platform']} {device['kind']} "
+          f"x{device['count']}; {device['nvidia_smi']}", file=sys.stderr)
     enable_persistent_cache()
     n = int(os.environ.get("SPLAT_BENCH_N", 1_000_000))
     h = int(os.environ.get("SPLAT_BENCH_H", 1080))
@@ -67,11 +74,9 @@ def main() -> None:
     # 60 device-chained frames: long enough that per-call dispatch and
     # scan setup amortize to the sustained throughput.
     frames = int(os.environ.get("SPLAT_BENCH_FRAMES", 60))
-    dup = float(os.environ.get("SPLAT_BENCH_DUP", 2.05))
-    # surface sweeps at 1.334M pairs flat (max over 60 frames); 1.45
-    # leaves 8.6% headroom and measured 38.9 vs 41.0 ms at 1.6 (the
-    # audit zeroes the score if any frame ever overflows it)
-    dup_surface = float(os.environ.get("SPLAT_BENCH_DUP_SURFACE", 1.45))
+    dup = float(os.environ.get("SPLAT_BENCH_DUP", 3.7))
+    # the audit zeroes the score if any frame of the sweep overflows
+    dup_surface = float(os.environ.get("SPLAT_BENCH_DUP_SURFACE", 2.0))
 
     # SPLAT_BENCH_SCENE picks the headline scene and skips the other;
     # unset, both run (random is the headline, surface is recorded).
@@ -107,6 +112,7 @@ def main() -> None:
         "num_pairs": head["num_pairs"],
         "visible": head["visible"],
         "scenes": scenes,
+        "device": {k: device[k] for k in ("platform", "kind", "count")},
     }))
 
 

@@ -6,6 +6,8 @@ plush_sledge / Mip-NeRF-360 models are multi-hundred-MB downloads this
 environment cannot fetch), reports device-chained ms/frame and PSNR vs the
 NumPy oracle where feasible, and writes a JSON report.
 
+Runs on the GPU only (a timing taken elsewhere is not this system's).
+
 Usage: python scripts/bench_suite.py [--out bench_suite.json] [--quick]
 """
 
@@ -53,10 +55,14 @@ def main():
 
     import splat_tpu as st
     from splat_tpu.config import RenderConfig
-    from splat_tpu.render.dense import render_dense
     from splat_tpu.render.oracle import render_oracle
     from splat_tpu.render.tiled import render_tiled
+    from splat_tpu.utils.benchmark import require_gpu
+    from splat_tpu.utils.compilecache import enable_persistent_cache
     from splat_tpu.utils.image import psnr
+
+    device = require_gpu()
+    enable_persistent_cache()
 
     div = 10 if args.quick else 1
     results = []
@@ -94,9 +100,8 @@ def main():
     run("4_mipnerf360_1080p", 1_000_000, 1080, 1920, RenderConfig())
     run("5_orbit_120f_1080p", 1_000_000, 1080, 1920, RenderConfig(),
         frames=120 // div if not args.quick else 12)
-    # Round-4 extended rows (BASELINE.md ladder 4+): resolution and
-    # gaussian-count scale.  Capacities per the measured pair loads
-    # (overflow is audited by the per-row pair counts staying < cap).
+    # Extended rows (BASELINE.md ladder 4+): resolution and
+    # gaussian-count scale, with capacities sized to their pair loads.
     run("4b_1440p", 1_000_000, 1440, 2560,
         RenderConfig(max_dup_factor=2.7))
     run("4c_4k_tile64", 1_000_000, 2160, 3840,
@@ -107,8 +112,9 @@ def main():
         RenderConfig(max_dup_factor=2.2))
 
     with open(args.out, "w") as f:
-        json.dump({"results": results}, f, indent=2)
-    print(json.dumps({"suite": "baseline_ladder", "results": results}))
+        json.dump({"device": device, "results": results}, f, indent=2)
+    print(json.dumps({"suite": "baseline_ladder", "device": device,
+                      "results": results}))
 
 
 if __name__ == "__main__":

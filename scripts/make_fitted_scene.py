@@ -18,7 +18,7 @@ so the closest honest substitute is a scene OUR OWN optimizer fitted:
    gates against.
 
 Deterministic given seeds; re-running regenerates an equivalent (not
-bit-identical across backends) artifact.  Run on the TPU for speed:
+bit-identical across backends) artifact.  Run on the GPU for speed:
 
     python scripts/make_fitted_scene.py [--steps 300]
 """
@@ -49,7 +49,7 @@ def main():
         "fitted_20k.ply"))
     ap.add_argument("--cpu", action="store_true",
                     help="force the CPU backend (slow; for regeneration "
-                         "without a TPU)")
+                         "without a GPU)")
     args = ap.parse_args()
 
     import jax

@@ -19,7 +19,7 @@ Writes tests/data/grown_scene.json (the sidecar the golden test gates
 on: growth trajectory, held-out PSNR, wall-clock) and optionally the
 grown .ply (~25 MB — not committed; the deterministic recipe is).
 
-Run on the TPU:  python scripts/make_grown_scene.py
+Run on the GPU:  python scripts/make_grown_scene.py
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
-"""splat_tpu — a TPU-native 3D Gaussian Splatting engine in JAX/XLA/Pallas.
+"""splat_tpu — a 3D Gaussian Splatting engine in JAX/XLA/Pallas.
 
 A ground-up rebuild of the capabilities of ``thomasantony/splat`` (a CPU
 software-rasterizer viewer for pretrained 3DGS ``.ply`` models), re-designed
-TPU-first:
+for an accelerator (it runs on an NVIDIA GPU; tests run on the CPU):
 
-* gaussian data lives in HBM-resident SoA arrays (:mod:`splat_tpu.scene`),
+* gaussian data lives in device-resident SoA arrays (:mod:`splat_tpu.scene`),
 * all per-gaussian math (cov3d, EWA projection, spherical harmonics, depth
   keys) is vectorized device code (:mod:`splat_tpu.ops`),
 * the per-pixel painter's-algorithm blend loop of the reference

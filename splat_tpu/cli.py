@@ -344,8 +344,8 @@ def cmd_orbit(args) -> int:
                              is_leaf=lambda a: hasattr(a, "shape"))
         if f_stats is not None:
             img, stats = f_stats(scene, c)
-            # keep the scalar on device; one fetch after the loop (each
-            # host round-trip costs ~100 ms on remote-attached TPUs)
+            # keep the scalar on device; one fetch after the loop instead
+            # of a host round-trip per frame
             overflows.append(stats["overflow"])
         else:
             img = f(scene, c)
@@ -440,6 +440,9 @@ def cmd_bench(args) -> int:
     cam = _camera(args)
     config = _config(args, scene, cam)
     r = chained_bench(scene.pack_device(), cam, config, args.frames)
+    d = r["device"]
+    print(f"device: {d['platform']} {d['kind']} x{d['count']}; "
+          f"{d['nvidia_smi']}")
     print(f"compile: {r['compile_s']:.1f}s")
     print(f"{args.frames} frames (device-chained, yaw sweep): "
           f"{r['ms_per_frame']:.2f} ms/frame ({r['fps']:.1f} FPS)")
@@ -636,7 +639,7 @@ def cmd_serve(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="splat_tpu",
-        description="TPU-native 3D gaussian splatting renderer")
+        description="3D gaussian splatting renderer (JAX/Pallas)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("render", help="render one frame to a PNG")
@@ -783,8 +786,7 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
-    # Warm-start: persist compiled executables across processes (first
-    # 1080p compile is ~90 s on the remote TPU; cached, seconds).
+    # Warm-start: persist compiled executables across processes.
     from splat_tpu.utils.compilecache import enable_persistent_cache
     enable_persistent_cache()
     return args.fn(args)

@@ -37,19 +37,20 @@ class RenderConfig:
       alpha_min: splats contributing less than this alpha are skipped
         (reference: src/pipelines.rs:140-143, 1/255).
       tile_px: tile width in pixels for the tile-binned rasterizer (and
-        the height too, unless tile_py is set).  32 is the measured
-        1080p sweet spot.  At 4K keep the tile grid + rank bits within
-        the 32-bit key budget for the fast expansion path: tile 64 at
-        3840x2160 with 1M gaussians runs 73 ms on v5e (pairs also drop
-        vs tile 32, whose 4K grid overflows the budget and takes the
-        XLA fallback).
-      block_shape: (sublanes, lanes) layout of one tile's pixels inside the
-        Pallas kernel; product must equal tile_w * tile_h.
+        the height too, unless tile_py is set).  The compositing kernel
+        spreads a tile's pixels across one program, so the tile's pixel
+        count must be a power of two.  16 (the INRIA rasterizer's tile)
+        beat 32 on an H100 at 1M gaussians, 1080p: 1.920 vs 2.055
+        ms/frame on the random scene and 3.626 vs 12.985 on the surface
+        scene, whose longest tile range fell from 43.5k to 19.2k pairs
+        (PERF.md).
       max_dup_factor: capacity of the (gaussian, tile) duplication buffer as
         a multiple of N.  The INRIA-style binning produces a data-dependent
         number of pairs; XLA needs a static bound.  Overflow is detected and
         reported (never silently truncated).
-      chunk: gaussians DMA'd/composited per inner-loop step in the kernel.
+      chunk: pairs the compositing kernel walks between two checks of
+        the tile's saturation exit (the reference walks batches of the
+        same size, so both exit at the same pair).
       background: color composited under the accumulated transmittance
         (reference clears to black, src/main.rs:73).
     """
@@ -61,102 +62,47 @@ class RenderConfig:
     # Training-path (render_tiled_diff) saturation exit at the INFERENCE
     # threshold: once every pixel of a tile has transmittance < alpha_min
     # the forward walk stops and the backward walks only the composited
-    # prefix.  This is the original 3DGS semantics (the reference CUDA
-    # forward stops at T < 1e-4 and its backward starts from the last
-    # contributor), and the custom VJP stays EXACT for the truncated
+    # prefix.  An INRIA-inspired whole-tile exit at alpha_min, checked
+    # every `chunk` pairs — the inference path's exit (INRIA stops each
+    # pixel at T < 1e-4) — and the custom VJP stays EXACT for the truncated
     # function it actually computes — the approximation is only vs the
     # full walk, bounded by the < alpha_min residual transmittance.
     # Default off: the default diff forward composites every pair and
     # cuts only at the f32-exact exp-underflow point (diff.SAT_CUT_LOG).
-    # Measured at 1M@1080p surface dup 2.2: 17.7% of walked pair-slots
-    # sit behind the alpha_min exit (scripts/satcut_probe.py).
     train_sat_exit: bool = False
-    tile_px: int = 32
+    tile_px: int = 16
     # Tile height in pixels; 0 means square tiles (= tile_px).  Rectangular
     # tiles trade pair count against per-pair pixel work: a splat's tile
     # span grows on the short axis but each pair covers fewer pixels.
-    # Measured at 1M@1080p (~13 px footprints): 32x16 costs +30% pairs for
-    # the 2x pixel-work cut and nets out ~4% SLOWER than 32x32 — square
-    # stays the default; the knob exists for other footprint distributions.
     tile_py: int = 0
     # Duplication capacity as a multiple of N.  Every K-sized binning op
     # (expansion, sort, feature gather) scales with it, so TUNE IT DOWN
-    # for throughput: trained-scene-like distributions at tile_px=32 run
-    # ~2.0 pairs/gaussian, and 2.05 is ~25% faster than the default (the
-    # bench runs there, guarded by its overflow audit; pair_stats()
-    # suggests a capacity for any scene+pose).  The default stays
+    # for throughput (the bench sizes it per scene, guarded by its
+    # overflow audit; pair_stats() suggests a capacity for any
+    # scene+pose).  The default stays
     # conservative because the raw render_fn path has no overflow check;
     # render()/CLI/bench all detect and surface overflow.
     max_dup_factor: float = 4.0
-    chunk: int = 128
+    chunk: int = 32
     # Drop (gaussian, tile) pairs whose best-case alpha anywhere in the tile
     # is below alpha_min (lossless: the kernel's per-pixel cutoff would zero
-    # them anyway).  Default off: measured as a net regression at 1M on v5e
-    # (the extra K-sized passes cost more than the kernel work saved);
-    # revisit for big-splat scenes once binning is optimized.
+    # them anyway).  Default off: it costs extra K-sized passes in binning.
     cull_pairs: bool = False
-    # Pair-expansion implementation: "auto" uses the Pallas one-hot/MXU
-    # kernel (render/expand.py) when its bit-budget preconditions hold and
-    # falls back to the XLA diff-scatter-cumsum otherwise; "xla" forces
-    # the fallback (profiling / very large tile grids).
-    expand_impl: str = "auto"
     # Low bits of the packed per-pair sort key (binning.py step 3/4):
     #   "depth" (default): (tile ‖ quantized depth), with the gaussian
     #     index riding the sort as ONE int32 payload operand.  Skips the
     #     whole N-side depth machinery (the argsort AND the 8-row gather
-    #     into depth order — each TPU gather index costs ~4-5 ns
-    #     regardless of width), for +~1.5 ms of payload movement through
-    #     the sort.  Measured on v5e at 1M@1080p: 39.6 -> 32.4 ms
-    #     (random, dup 2.05) and 38.9 -> 32.0 ms (surface, dup 1.45).
+    #     into depth order) for one payload operand through the sort.
     #     Front-to-back order within a tile is exact up to the
     #     quantization: depth ties at min(24, 32 - tile_bits) >= ~18
     #     bits per frame-depth-range composite in arbitrary order (the
-    #     reference CPU sort breaks such ties by original index;
-    #     visually nil — on-chip sweep parity is within 0.1 dB of rank
-    #     mode).  The key always fits 32 bits, so huge tile grids (4K at
-    #     tile 32) stay on the fast Pallas expansion path.
+    #     reference CPU sort breaks such ties by original index).  The
+    #     key always fits 32 bits.
     #   "rank": (tile ‖ depth rank) single-array key — exact tie-breaking
     #     (matches the reference's stable CPU sort bit-for-bit), at the
     #     cost of the N-side argsort + depth-order gather.
     binning_key: str = "depth"
     background: tuple[float, float, float] = (0.0, 0.0, 0.0)
-    # Per-pixel-group saturation exit in the raster kernel: pixels of a
-    # HEAVY tile (pair range > subtile_heavy_pairs) are partitioned into
-    # 8x16 blocks, each with its own saturation flag, so a tile that
-    # mixes opaque surface with open background stops doing VPU work on
-    # the covered blocks while the background blocks keep compositing.
-    # This targets the trained-scene silhouette tiles (they walk tens of
-    # thousands of pairs at full tile width because one background pixel
-    # keeps the whole tile alive; a saturation profile shows 8x16 groups
-    # would cut their group-windows 3.6x — scripts/satprofile.py).
-    # DEFAULT OFF: the current implementation's per-group overhead
-    # exceeds those savings on v5e (measured: surface 52.2 -> 67.9 ms,
-    # uniform 50.4 -> 53.8 ms) — the machinery is kept, tested, and
-    # gated for further iteration.  Tiles not divisible into 8x16 blocks
-    # degrade to whole-tile automatically.
-    subtile_exit: bool = False
-    # Pair-range length above which a tile runs the phase-compaction
-    # walk.  Below it the possible savings can't repay the bookkeeping;
-    # 8192 keeps the uniform random benchmark scene (max tile ~5.6k
-    # pairs) entirely on the zero-overhead light path.
-    subtile_heavy_pairs: int = 8192
-    # Compute the per-window transmittance prefix on the MXU instead of
-    # the VPU: log1p(-alpha), ONE strictly-triangular-ones matmul as the
-    # exclusive prefix sum (two exact bf16 passes via Dekker bit-split —
-    # never the f32(bf16(x)) round-trip, which XLA's excess-precision
-    # pass elides), then exp.  Replaces the 7-level shifted-multiply
-    # prefix product (~14 VPU passes per window) with ~4 passes plus MXU
-    # work that overlaps the VPU.  Default ON: measured 50.4 -> 42.8 ms
-    # (random 1M@1080p) and 52.2 -> 40.2 ms (surface); parity-tested vs
-    # the VPU prefix (tests/test_tiled.py) and in the on-chip sweep
-    # (scripts/devtime.py --psnr-sweep).
-    transmit_mxu: bool = True
-    # Color accumulation matmul precision in the raster kernel.  False
-    # (default): one bf16 MXU pass with f32 accumulation — measured
-    # 70.3 dB vs the oracle on-chip (threshold 45), ~3.8 ms/frame faster
-    # at 1M@1080p.  True: Precision.HIGHEST (79.5 dB, the u16 feature
-    # quantization is then the accuracy bound).
-    exact_color_accum: bool = False
     # Output an RGBA image: the fourth channel is the ACCUMULATED coverage
     # 1 - T (T = per-pixel transmittance after all splats), for compositing
     # renders over other content.  The reference's framebuffer alpha byte
@@ -170,7 +116,7 @@ class RenderConfig:
     # the composite is the alpha-weighted expected depth sum(alpha_i T_i
     # d_i) — a grayscale depth map (near = dark, far = bright).  Pair with
     # alpha_channel=True and divide by the coverage channel for mean depth
-    # on partially-covered pixels.  Binning, the Pallas kernel, and the
+    # on partially-covered pixels.  Binning, the compositing kernel, and the
     # sharded paths are untouched — only the per-gaussian color rows change
     # (ops/projection.encode_depth_color).  The reference has no depth
     # output; this is the 3DGS ecosystem's "expected depth" mode.
@@ -196,7 +142,7 @@ class RenderConfig:
     # becomes exactly the opacity-aware kill radius, which makes the raster
     # kernel's bbox compares redundant (the alpha_min test subsumes them —
     # marginal bound, ops/projection.py) so the kernel statically drops
-    # ~4 (P, chunk) VPU passes per window; the trade is slightly larger
+    # them; the trade is slightly larger
     # bboxes (hence pairs) for high-opacity splats, up to
     # sqrt(2 ln(opacity/alpha_min)) ~ 3.33 sigma at opacity 0.99.
     sigma_cutoff: float = 3.0
@@ -228,13 +174,16 @@ class RenderConfig:
     def __post_init__(self):
         if not (0 <= self.sh_degree <= 3):
             raise ValueError(f"sh_degree must be in [0,3], got {self.sh_degree}")
-        if self.tile_px % 8 != 0:
-            raise ValueError(f"tile_px must be a multiple of 8, got {self.tile_px}")
-        if self.tile_py % 8 != 0:
-            raise ValueError(f"tile_py must be a multiple of 8, got {self.tile_py}")
-        if self.expand_impl not in ("auto", "xla"):
-            raise ValueError(f"expand_impl must be 'auto' or 'xla', "
-                             f"got {self.expand_impl!r}")
+        if self.tile_px <= 0 or self.tile_py < 0:
+            raise ValueError(f"tile sizes must be positive, got "
+                             f"{self.tile_px}x{self.tile_py}")
+        npix = self.tile_w * self.tile_h
+        if npix & (npix - 1):
+            raise ValueError(
+                f"tile {self.tile_w}x{self.tile_h} has {npix} pixels; the "
+                "compositing kernel needs a power of two")
+        if self.chunk <= 0:
+            raise ValueError(f"chunk must be positive, got {self.chunk}")
         if self.binning_key not in ("rank", "depth"):
             raise ValueError(f"binning_key must be 'rank' or 'depth', "
                              f"got {self.binning_key!r}")
@@ -264,12 +213,3 @@ class RenderConfig:
     def tile_h(self) -> int:
         """Tile height in pixels (tile_py, defaulting to square tiles)."""
         return self.tile_py or self.tile_px
-
-    @property
-    def block_shape(self) -> tuple[int, int]:
-        """(sublane, lane) shape a tile's pixels are viewed as in the kernel."""
-        n = self.tile_w * self.tile_h
-        lanes = 128
-        if n % lanes:
-            raise ValueError(f"tile pixels {n} not a multiple of 128")
-        return (n // lanes, lanes)

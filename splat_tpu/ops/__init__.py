@@ -1,4 +1,5 @@
-"""Vectorized per-gaussian math: the TPU twin of reference src/gaussians.rs."""
+"""Vectorized per-gaussian math: the device twin of reference
+src/gaussians.rs."""
 
 from splat_tpu.ops.transforms import quat_to_rotmat, compute_cov3d
 from splat_tpu.ops.sh import eval_sh, SH_C0

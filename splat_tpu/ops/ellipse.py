@@ -52,7 +52,7 @@ def projected_covariance_of_ellipsoid(means, quats, scales, view,
 
     # T = M^T R_c J ; covariance = T^T T  (src/gaussians.rs:193-194).
     # Small per-row contractions; N is the vector axis so keep everything
-    # elementwise via explicit sums (no batched-tiny-matmul MXU dispatch).
+    # elementwise via explicit sums (no batched tiny matmuls).
     rcj = jnp.einsum("ab,nbc->nac", cam_rot, j_mat,
                      precision=jax.lax.Precision.HIGHEST)
     t = jnp.einsum("nba,nbc->nac", m, rcj,

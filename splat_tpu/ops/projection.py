@@ -58,8 +58,8 @@ class ProjectedGaussians:
 
 
 def _pos_cam(means: jax.Array, view: jax.Array) -> jax.Array:
-    """(N,3) world -> camera space, elementwise (no MXU dispatch: batched
-    tiny matmuls are pathological on TPU — see compute_cov3d_packed)."""
+    """(N,3) world -> camera space, elementwise (no batched tiny matmuls —
+    see compute_cov3d_packed)."""
     mx, my, mz = means[:, 0], means[:, 1], means[:, 2]
     out = [view[i, 0] * mx + view[i, 1] * my + view[i, 2] * mz + view[i, 3]
            for i in range(3)]
@@ -100,8 +100,9 @@ def ewa_project_packed(means, cov6, view, focal, lowpass: float):
       cov2d = (f/tz)^2 * [u^T Sigma u, u^T Sigma v; ., v^T Sigma v]
     where u, v are the first two rows of the view rotation.
 
-    Everything is fused multiply-adds over (N,) vectors — no MXU dispatch,
-    full f32 (parity needs true f32; TPU matmul default is bf16-grade).
+    Everything is fused multiply-adds over (N,) vectors — no matrix-unit
+    dispatch, full f32 (parity needs true f32; a float32 matmul may run in
+    a reduced-precision mode unless asked for HIGHEST).
     """
     xx, xy, xz, yy, yz, zz = (cov6[:, i] for i in range(6))
     u = view[0, :3]

@@ -9,7 +9,7 @@ Differences from the reference, by design:
 * ``degree`` is a static argument instead of the float-count ``sh_dim``
   gating (sh_dim>3 / >12 / >27 at src/gaussians.rs:46,61,77).  degree 2
   corresponds to the Rust renderer's hard-coded sh_dim=15.
-* evaluation is batched over N on the VPU, not per-quad-corner (the reference
+* evaluation is batched over N on the device, not per-quad-corner (the reference
   re-evaluates SH 6x per gaussian, once per quad vertex —
   src/pipelines.rs:96-125; that waste has no equivalent here).
 """

@@ -6,7 +6,7 @@ into camera space, argsort ascending by camera-space z.  With the RH
 ``look_at`` frame visible points have negative z, so ascending order is
 farthest-first — the painter's (back-to-front) order.
 
-On TPU these are one fused elementwise pass + ``jnp.argsort``; the renderers
+On the device these are one fused elementwise pass + ``jnp.argsort``; the renderers
 use the front-to-back variant internally.
 """
 

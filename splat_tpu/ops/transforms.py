@@ -56,10 +56,9 @@ def compute_cov3d(quats: jax.Array, scales: jax.Array) -> jax.Array:
 def compute_cov3d_packed(quats: jax.Array, scales: jax.Array) -> jax.Array:
     """(N,4),(N,3) -> (N,6) packed (xx, xy, xz, yy, yz, zz) covariances.
 
-    Written as pure elementwise VPU math: a batched (N,3,3) einsum lowers to
-    one MXU pass *per batch element* on TPU (3x3 inside a 128x128 systolic
-    array = 99.9% waste; measured ~1.2 s for N=1M), while these fused
-    multiply-adds over (N,) vectors are bandwidth-bound.
+    Written as pure elementwise math: a batched (N,3,3) einsum is a
+    batch of tiny matrix products that waste a matrix unit, while these
+    fused multiply-adds over (N,) vectors are bandwidth-bound.
     """
     rot = quat_to_rotmat(quats)                    # (N,3,3) elementwise
     m = rot * scales[..., None, :]                 # R * s (columns scaled)

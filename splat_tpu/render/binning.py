@@ -10,49 +10,37 @@ per-tile ranges), reformulated for XLA's static shapes:
    bits over the frame's visible depth range) and its index rides the
    pair sort as one int32 payload.  "rank": one argsort of N depth
    keys; all later stages work in depth order and the key's low bits
-   are the unique depth RANK (exact tie-breaking, and the N-side pays
-   the argsort plus an 8-row gather into depth order — each TPU gather
-   index costs ~4-5 ns, so this is ~6-7 ms at N=1M);
+   are the unique depth RANK (exact tie-breaking, at the price of the
+   argsort plus a gather into depth order);
 2. each visible gaussian covers a rectangle of tiles derived from its
    sigma_cutoff bbox; per-gaussian pair counts -> exclusive prefix sum;
-3. expand to a capacity-bounded slot array: the Pallas expansion kernel
-   (render/expand.py) recovers each slot's owner by windowed comparison
-   against the sorted first_slot array and emits the packed
-   (tile id ‖ depth) sort key (plus, in depth mode, the gaussian-index
-   payload) via a one-hot MXU contraction — no scatter, gather, or
-   cumsum at K scale (an XLA diff-scatter-cumsum fallback covers huge
-   tile grids / k_cap >= 2^24);
+3. expand to a capacity-bounded slot array with a batched
+   diff-scatter-cumsum (each per-gaussian sequence becomes a per-slot
+   one by scattering wrapped differences at first slots and taking a
+   cumulative sum) and emit the packed (tile id ‖ depth) sort key (plus,
+   in depth mode, the gaussian-index payload);
 4. ONE unstable sort groups pairs per tile, front-to-back inside each
    tile: in rank mode a single-array sort whose sorted low bits are
    directly the feature-gather indices; in depth mode a key+ONE-payload
-   sort whose sorted payload is the gather index (payload movement
-   costs ~1.5 ms/row at K ~ 2M — cheap against the N-side it deletes,
-   ruinous for the 8-row feature table, which is why features are
-   gathered after the sort in both modes);
+   sort whose sorted payload is the gather index (features are gathered
+   after the sort in both modes rather than riding it as payload);
 5. per-tile [start, end) ranges via searchsorted over the sorted keys;
-6. ONE 8-row feature gather at K.  TPU gather cost jumps ~5x above 8
-   rows (measured on v5e), so the 11 per-pair quantities are packed into
-   exactly 8 int32 rows: 5 rows carry f32 bits verbatim, 3 rows carry
-   u16 pairs (colors/opacity at 1/65535, radii at 1/8 px); the raster
-   kernel decodes them with cheap (1, chunk) window-level ops.
+6. ONE 8-row feature gather at K: the 11 per-pair quantities are packed
+   into exactly 8 int32 rows (32 bytes a pair): 5 rows carry f32 bits
+   verbatim, 3 rows carry u16 pairs (colors/opacity at 1/65535, radii at
+   1/8 px); the compositing kernel decodes them per pair.
 
 Everything that rides a gather is INT32-typed: f32-typed arrays holding
-int bit patterns are denormal floats, and XLA:TPU flushes denormals
-inside gather/concat fusions (measured: counts silently became zero).
+int bit patterns are denormal floats, which a backend may flush to zero.
 Int arrays see no float arithmetic, so bit patterns survive verbatim.
-
-(Measured and rejected in round 2: carrying the feature rows as lax.sort
-payload operands to skip the gather — payload movement through the sort
-network costs ~1.5 ms per row at K=2.2M, dwarfing the gather.)
 
 Capacity: K_cap = max_dup_factor * N slots.  If a frame produces more pairs,
 the overflow count is returned and surfaced by the non-jit wrapper (in
 rank mode the dropped pairs are the *deepest* ones — graceful
 degradation; in depth mode they are the highest-index gaussians of the
 scene's storage order — either way overflow is never silent).  Depth
-mode additionally spends ONE sentinel slot per invisible gaussian (the
-strict first_slot monotonicity the Pallas expansion kernel's owner
-window requires — see step 1 in build_tile_bins); num_pairs and
+mode additionally spends ONE sentinel slot per invisible gaussian (see
+step 2 in build_tile_bins); num_pairs and
 overflow count REAL pairs exactly in both modes (conservation:
 num_pairs + overflow == true pair count), and pair_stats' suggested
 capacity covers pairs + invisible.
@@ -78,24 +66,22 @@ from splat_tpu.ops.projection import ProjectedGaussians
 class TileBins:
     """Sorted (gaussian, tile) pairs ready for the raster kernel.
 
-    features: (8, K_cap + chunk) int32 feature-major, columns ordered by
+    features: (8, K_cap) int32 feature-major, columns ordered by
       (tile, depth).  Rows 0-4 are f32 BITS of
       [cx, cy, -a/2, -b, -c/2] with (a, b, c) the conic — prescaled so
       the kernel evaluates power = r2*dx^2 + r4*dy^2 + r3*(dx*dy)
       directly.  Rows 5-7 are u16 pairs (low ‖ high << 16):
       row 5 (r, g) and row 6 (b, opacity) in 1/65535 units; row 7 packs
       (rx, ry) as 15-bit 1/8-px fields with the visibility flag in bit
-      30.  The raster kernel decodes these with
-      (1, chunk) window-level ops — far cheaper than gathering wider
-      rows (gather cost jumps ~5x above 8 rows).
+      30.  The compositing kernel decodes them per pair.
     tile_start/tile_end: (T,) int32 pair ranges per tile.
     ranks: (K_cap,) int32 — each sorted pair's feature-gather index:
       with binning_key="rank" the depth rank (strictly increasing within
       every tile's range — the exact front-to-back contract); with
       binning_key="depth" the pair's gaussian index in original scene
       order (within a tile, the gaussians' quantized depths are
-      nondecreasing).  Unused by the kernel; exposed for tests and
-      diagnostics.
+      nondecreasing).  The training backward reduces per-pair
+      gradients to gaussians through it.
     num_pairs: () int32 total valid pairs (pre-capacity).
     overflow: () int32 pairs dropped due to capacity.
     """
@@ -111,6 +97,10 @@ class TileBins:
 
 
 FEATURE_DIM = 8
+
+# Capacity grain: k_cap rounds up to a multiple of this many slots, so
+# nearby max_dup_factor values share one compiled shape.
+K_GRAIN = 1024
 
 _U16 = 65535.0
 
@@ -240,25 +230,17 @@ def _decode_cull_inputs(feats_d, alpha_min: float):
 
 
 def build_tile_bins(proj: ProjectedGaussians, h: int, w: int,
-                    config: RenderConfig, debug_stage: str | None = None,
-                    interpret: bool | None = None):
-    """debug_stage (profiling only): return a scalar checksum right after
-    the named sub-stage ('order', 'counts', 'slots', 'tiles', 'sort',
-    'edges', 'gather') so each stage's device cost can be measured
-    cumulatively."""
+                    config: RenderConfig) -> TileBins:
+    """Bin projected gaussians into per-tile, front-to-back pair ranges."""
     tpx, tpy = config.tile_w, config.tile_h
     ntx = -(-w // tpx)
     nty = -(-h // tpy)
     num_tiles = ntx * nty
     n = proj.depth.shape[0]
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    # capacity in slots, rounded up to the expansion-kernel grain
-    # (max_dup_factor may be fractional — every K-sized op below scales
-    # linearly with k_cap, so tracking the scene's true pair count pays)
-    from splat_tpu.render import expand as _expand
-    grain = _expand.BLOCK * _expand.BLOCKS_PER_PROG
-    k_cap = -(-int(config.max_dup_factor * n) // grain) * grain
+    # capacity in slots, rounded up to K_GRAIN (max_dup_factor may be
+    # fractional — every K-sized op below scales linearly with k_cap, so
+    # tracking the scene's true pair count pays)
+    k_cap = -(-int(config.max_dup_factor * n) // K_GRAIN) * K_GRAIN
 
     # -- 1. front-to-back global order ------------------------------------
     # binning_key == "rank": ONE argsort of N depth keys; every later
@@ -269,9 +251,8 @@ def build_tile_bins(proj: ProjectedGaussians, h: int, w: int,
     #   low bits are the QUANTIZED depth (min(24, 32 - tile_bits) bits,
     #   normalized to this frame's visible depth range) and the gaussian
     #   index rides the pair sort as one int32 payload operand.  This
-    #   deletes the argsort AND the 8-row gather into depth order —
-    #   both pay the ~4-5 ns/index TPU gather floor at N — for ~1.5 ms
-    #   of payload movement through the K-sort.  Ties (same quantized
+    #   deletes the argsort AND the 8-row gather into depth order, for
+    #   one int32 payload through the K-sort.  Ties (same quantized
     #   depth, same tile) composite in arbitrary order; at >= 2^18
     #   levels per frame depth range this is visually nil (the dense
     #   path and the oracle keep exact stable ordering).
@@ -291,13 +272,9 @@ def build_tile_bins(proj: ProjectedGaussians, h: int, w: int,
         dq = jnp.clip(jnp.where(jnp.isfinite(dqf), dqf, 0.0), 0.0, qmax
                       ).astype(jnp.int32)
         order = None
-        if debug_stage == "order":
-            return jnp.sum(dq)
     else:
         depth_key = jnp.where(proj.visible, proj.depth, jnp.inf)
         order = jnp.argsort(depth_key)
-        if debug_stage == "order":
-            return jnp.sum(order)
 
     # -- 2. pack features; tile spans + pair counts --------------------------
     cx, cy = proj.center_px[:, 0], proj.center_px[:, 1]
@@ -320,10 +297,9 @@ def build_tile_bins(proj: ProjectedGaussians, h: int, w: int,
     shift_f = bits_x + bits_y + bits_w
     mask_r = (1 << bits_r) - 1
     # Move ALL per-gaussian state into depth order with ONE consolidated
-    # 8-row take — each TPU gather index has a fixed cost floor, a second
-    # N-gather would double it, and gather cost jumps ~5x above 8 rows.
-    # All rows are int32 (f32 bits / u16 pairs); see the module docstring
-    # for why bit patterns must never ride in f32-typed arrays.  Row 7
+    # 8-row take.  All rows are int32 (f32 bits / u16 pairs); see the
+    # module docstring for why bit patterns must never ride in f32-typed
+    # arrays.  Row 7
     # packs the radii as 15-bit 1/8-px fields plus the VISIBILITY bit:
     # tile spans and pair counts are recomputed post-gather from the
     # quantized radii (the quantized value is the single source of truth
@@ -351,20 +327,14 @@ def build_tile_bins(proj: ProjectedGaussians, h: int, w: int,
                                             tpx, tpy, ntx, nty)
     vis_d = None
     if depth_mode:
-        # CORRECTNESS, not an optimization: the Pallas expansion kernel
-        # recovers each slot's owner inside a CWIN-column window whose
-        # bound (<= B+1 owner columns + 128 alignment slack) requires
-        # first_slot to be STRICTLY increasing.  Rank mode gets that for
-        # free (depth-sorted input pushes invisible gaussians — depth
-        # inf — to the tail), but depth mode keeps scene order, so
-        # zero-count invisible gaussians interleave with visible ones
-        # and stretch a block's owner span past the window (observed:
-        # a slab re-gate leaving 25% visible corrupted whole tiles —
-        # all-zero one-hot rows emit bogus tile-0 keys).  Giving every
-        # invisible gaussian ONE fake slot aimed at the sentinel tile
-        # (ty0 = nty, sw = 1 -> tile id = num_tiles exactly) restores
-        # strict monotonicity in ANY order; fake keys sort past the last
-        # tile edge and are never walked.  The accounting below removes
+        # Every invisible gaussian spends ONE fake slot aimed at the
+        # sentinel tile (ty0 = nty, sw = 1 -> tile id = num_tiles
+        # exactly), which keeps first_slot strictly increasing in scene
+        # order; fake keys sort past the last tile edge and are never
+        # walked.  (A windowed owner search needed the strict order; the
+        # scatter-cumsum expansion does not, but pair_stats and
+        # diff._segment_offsets mirror this accounting, so it stays until
+        # all three change together.)  The accounting below removes
         # fakes from num_pairs and overflow exactly, so the public
         # contracts (real pairs walked, real pairs dropped) are
         # unchanged; the only real cost is capacity: depth-mode slot
@@ -377,8 +347,6 @@ def build_tile_bins(proj: ProjectedGaussians, h: int, w: int,
     total = cum[-1]
     first_slot = cum - counts                       # exclusive prefix sum
     overflow = jnp.maximum(total - k_cap, 0)
-    if debug_stage == "counts":
-        return total + jnp.sum(first_slot)
 
     # -- 3. per-slot expansion -> packed sort keys -------------------------
     bits_rank = max(int(n - 1).bit_length(), 1)
@@ -395,10 +363,6 @@ def build_tile_bins(proj: ProjectedGaussians, h: int, w: int,
         low_bits = bits_rank
         packed_key = bits_tile + bits_rank <= 32
     key_xor = -(1 << 31) if bits_tile + low_bits == 32 else 0
-    use_pallas_expand = (
-        config.expand_impl != "xla"
-        and packed_key and k_cap < _expand.MAX_KCAP
-        and max(ntx, nty) <= _expand.MAX_TILE_COORD)
     num_pairs = jnp.minimum(total, jnp.int32(k_cap))
     if depth_mode:
         # Exact fake-slot accounting: an invisible gaussian's single fake
@@ -413,161 +377,110 @@ def build_tile_bins(proj: ProjectedGaussians, h: int, w: int,
         n_invis = jnp.sum(invis.astype(jnp.int32))
         overflow = overflow - fake_dropped
         num_pairs = num_pairs - (n_invis - fake_dropped)
-    key = None
-
-    if use_pallas_expand:
-        # Pallas expansion (render/expand.py): per-block one-hot owner
-        # recovery + one exact bf16 MXU contraction — no K-scale scatter,
-        # cumsum, or decode; the kernel emits final sort keys directly,
-        # with the optional lossless dead-pair cull folded in.
-        cull_cols = None
-        if config.cull_pairs:
-            ccx, ccy, r_cull, _, _ = _decode_cull_inputs(
-                feats_d, config.alpha_min)
-            cull_cols = (ccx, ccy, r_cull)
-        res = _expand.expand_pair_keys(
-            first_slot, tx0_d, ty0_d, sw_d,
-            total, n=n, k_cap=k_cap, ntx=ntx, num_tiles=num_tiles,
-            bits_rank=bits_rank, tile_wh=(tpx, tpy), key_xor=key_xor,
-            cull=cull_cols,
-            depth_q=dq if depth_mode else None,
-            depth_bits=depth_bits if depth_mode else 0,
-            interpret=interpret)
-        key, idx = res if depth_mode else (res, None)
-        if config.cull_pairs:
-            # pairs the kernel will actually walk (post-cull)
-            tile_of = ((key ^ key_xor) >> low_bits) & ((1 << bits_tile) - 1)
-            num_pairs = jnp.sum((tile_of != num_tiles).astype(jnp.int32))
-        if debug_stage in ("slots", "tiles"):
-            s = jnp.sum(key)
-            return s + jnp.sum(idx) if idx is not None else s
-        return _sort_and_gather(key, None, payload=idx,
-                                sorted_rank_bits=low_bits,
-                                key_xor=key_xor, feats_d=feats_d,
-                                num_tiles=num_tiles, num_pairs=num_pairs,
-                                overflow=overflow, ntx=ntx, nty=nty,
-                                config=config, debug_stage=debug_stage)
-
-    # XLA fallback expansion via batched diff-scatter-cumsum:
-    # TPU gathers cost ~6-7 ns per INDEX (scalar-core bound): a K-sized
-    # gather is ~40 ms at K=6M, and the naive formulation needs five of
-    # them.  Instead, any int32 per-gaussian sequence v expands to slots
-    # exactly by scattering wrapped differences at each gaussian's first
-    # slot and taking a wrapping cumulative sum (telescoping; zero-count
-    # gaussians stack their deltas on the next start, which telescopes
-    # through).  One batched scatter + one batched cumsum expand all
-    # sequences at once:
+    # Expansion via batched diff-scatter-cumsum: any int32 per-gaussian
+    # sequence v expands to slots exactly by scattering wrapped
+    # differences at each gaussian's first slot and taking a wrapping
+    # cumulative sum (telescoping; zero-count gaussians stack their
+    # deltas on the next start, which telescopes through).  One scatter +
+    # one cumsum per row expand all sequences at once:
     #   row 0: packed word: geometry (tx0, ty0, span_w) and, when the bit
     #          budget allows, the low bits of first_slot (for r_of_slot)
     #   plus a scatter of ONES whose cumsum is the depth RANK of each
-    #   slot's gaussian (ranks increase by exactly 1 per visible gaussian,
-    #   so the "wrapped differences" of the rank sequence are all ones —
-    #   no gather needed; zero-count gaussians stack and telescope).  The
-    #   rank doubles as the feature-gather source into feats_d AND the
-    #   low bits of the packed sort key.
-    slot_ids = jnp.arange(k_cap, dtype=jnp.int32)
-    geom = tx0_d | (ty0_d << bits_x) | (sw_d << (bits_x + bits_y))
-    if packed_first:
-        row_list = [geom | ((first_slot & mask_r) << shift_f)]
-    else:
-        row_list = [geom, first_slot]
-    if depth_mode:
-        row_list.append(dq)        # expands to each slot's owner depth_q
-    rows = jnp.stack(row_list)                                     # (R, N)
-    deltas = jnp.concatenate(
-        [rows[:, :1], rows[:, 1:] - rows[:, :-1]], axis=1)         # wraps ok
-    idx = jnp.minimum(first_slot, k_cap)
-    # barrier: keep the scatters PURE (fused update computations re-evaluate
-    # per update on the scalar core), and use plain 1-row scatters — the
-    # batched windowed form scatters multi-element columns into a
-    # minor-dim-k layout, which measured 46 ms vs ~3 ms for row scatters.
-    deltas, idx = jax.lax.optimization_barrier((deltas, idx))
-    expanded = [
-        jnp.cumsum(jnp.zeros((k_cap + 1,), jnp.int32).at[idx].add(
-            deltas[r], mode="drop")[:k_cap])
-        for r in range(rows.shape[0])
-    ]
-    ones = jnp.ones((n,), jnp.int32)
-    rank_e = jnp.cumsum(
-        jnp.zeros((k_cap + 1,), jnp.int32).at[idx].add(
-            ones, mode="drop")[:k_cap]) - 1
-    rank_e = jnp.clip(rank_e, 0, n - 1)
-    dq_e = expanded.pop() if depth_mode else None
-    if packed_first:
-        (word_e,) = expanded
-        geom_e = word_e  # low bits hold geometry; masks below select fields
-        first_low = (word_e >> shift_f) & mask_r
-        r_of_slot = (slot_ids - first_low) & mask_r
-    else:
-        geom_e, first_e = expanded
-        r_of_slot = slot_ids - first_e
-    if debug_stage == "slots":
-        return jnp.sum(rank_e)
+    #   slot's gaussian (ranks increase by exactly 1 per gaussian, so the
+    #   "wrapped differences" of the rank sequence are all ones — no
+    #   gather needed).  The rank doubles as the feature-gather source
+    #   into feats_d AND the low bits of the packed sort key.
+    with jax.named_scope("expand"):
+        slot_ids = jnp.arange(k_cap, dtype=jnp.int32)
+        geom = tx0_d | (ty0_d << bits_x) | (sw_d << (bits_x + bits_y))
+        if packed_first:
+            row_list = [geom | ((first_slot & mask_r) << shift_f)]
+        else:
+            row_list = [geom, first_slot]
+        if depth_mode:
+            row_list.append(dq)        # expands to each slot's owner depth_q
+        rows = jnp.stack(row_list)                                     # (R, N)
+        deltas = jnp.concatenate(
+            [rows[:, :1], rows[:, 1:] - rows[:, :-1]], axis=1)   # wraps ok
+        idx = jnp.minimum(first_slot, k_cap)
+        expanded = [
+            jnp.cumsum(jnp.zeros((k_cap + 1,), jnp.int32).at[idx].add(
+                deltas[r], mode="drop")[:k_cap])
+            for r in range(rows.shape[0])
+        ]
+        ones = jnp.ones((n,), jnp.int32)
+        rank_e = jnp.cumsum(
+            jnp.zeros((k_cap + 1,), jnp.int32).at[idx].add(
+                ones, mode="drop")[:k_cap]) - 1
+        rank_e = jnp.clip(rank_e, 0, n - 1)
+        dq_e = expanded.pop() if depth_mode else None
+        if packed_first:
+            (word_e,) = expanded
+            geom_e = word_e  # low bits: geometry; masks select fields
+            first_low = (word_e >> shift_f) & mask_r
+            r_of_slot = (slot_ids - first_low) & mask_r
+        else:
+            geom_e, first_e = expanded
+            r_of_slot = slot_ids - first_e
 
-    tx0_e = geom_e & ((1 << bits_x) - 1)
-    ty0_e = (geom_e >> bits_x) & ((1 << bits_y) - 1)
-    sw = (geom_e >> (bits_x + bits_y)) & ((1 << bits_w) - 1)
-    # r // sw and r % sw with a VECTOR divisor are software-emulated
-    # (bit-serial) integer division on TPU.  r_of_slot < span area <= a few
-    # thousand, so exact f32 reciprocal math is safe: (r + 0.5)/sw floors to
-    # the true quotient for any integer r < 2^22.
-    rf = r_of_slot.astype(jnp.float32) + 0.5
-    dy = jnp.floor(rf / sw.astype(jnp.float32)).astype(jnp.int32)
-    dx_ = r_of_slot - dy * sw
-    tile_col = tx0_e + dx_
-    tile_row = ty0_e + dy
-    tile_id = tile_row * ntx + tile_col
-    valid = slot_ids < jnp.minimum(total, k_cap)
+        tx0_e = geom_e & ((1 << bits_x) - 1)
+        ty0_e = (geom_e >> bits_x) & ((1 << bits_y) - 1)
+        sw = (geom_e >> (bits_x + bits_y)) & ((1 << bits_w) - 1)
+        # slots past the last pair carry garbage spans (sw may be 0); they
+        # are masked by `valid` below, so only keep the division defined
+        dy = r_of_slot // jnp.maximum(sw, 1)
+        dx_ = r_of_slot - dy * sw
+        tile_col = tx0_e + dx_
+        tile_row = ty0_e + dy
+        tile_id = tile_row * ntx + tile_col
+        valid = slot_ids < jnp.minimum(total, k_cap)
 
-    if config.cull_pairs:
-        # Fine-grained pair culling: a pair is dead when even the most
-        # favorable pixel of the tile has alpha < alpha_min — exactly the
-        # kernel's own per-pixel cutoff, so dropping it is lossless.
-        # Per-gaussian quantities are computed once at N; the per-slot
-        # lookup is ONE feature-major (4, K) gather.
-        ccx, ccy, _, lam_min_n, thresh_n = _decode_cull_inputs(
-            feats_d, config.alpha_min)
-        cull_rows = jnp.stack([ccx, ccy, lam_min_n, thresh_n])   # (4, N)
-        vals = jnp.take(cull_rows, rank_e, axis=1)               # (4, K)
-        cxd, cyd, lam_min, thresh = vals[0], vals[1], vals[2], vals[3]
-        x0 = tile_col.astype(jnp.float32) * tpx
-        y0 = tile_row.astype(jnp.float32) * tpy
-        ddx = jnp.maximum(jnp.maximum(x0 - cxd, cxd - (x0 + tpx - 1)), 0.0)
-        ddy = jnp.maximum(jnp.maximum(y0 - cyd, cyd - (y0 + tpy - 1)), 0.0)
-        q_low = lam_min * (ddx * ddx + ddy * ddy)
-        # alpha_max = opacity * exp(-q_low / 2) < alpha_min  <=>
-        # q_low > 2 * log(opacity / alpha_min)
-        valid = valid & (q_low <= thresh)
+        if config.cull_pairs:
+            # Fine-grained pair culling: a pair is dead when even the most
+            # favorable pixel of the tile has alpha < alpha_min — exactly the
+            # kernel's own per-pixel cutoff, so dropping it is lossless.
+            # Per-gaussian quantities are computed once at N; the per-slot
+            # lookup is ONE feature-major (4, K) gather.
+            ccx, ccy, _, lam_min_n, thresh_n = _decode_cull_inputs(
+                feats_d, config.alpha_min)
+            cull_rows = jnp.stack([ccx, ccy, lam_min_n, thresh_n])   # (4, N)
+            vals = jnp.take(cull_rows, rank_e, axis=1)               # (4, K)
+            cxd, cyd, lam_min, thresh = vals[0], vals[1], vals[2], vals[3]
+            x0 = tile_col.astype(jnp.float32) * tpx
+            y0 = tile_row.astype(jnp.float32) * tpy
+            ddx = jnp.maximum(jnp.maximum(x0 - cxd, cxd - (x0 + tpx - 1)), 0.0)
+            ddy = jnp.maximum(jnp.maximum(y0 - cyd, cyd - (y0 + tpy - 1)), 0.0)
+            q_low = lam_min * (ddx * ddx + ddy * ddy)
+            # alpha_max = opacity * exp(-q_low / 2) < alpha_min  <=>
+            # q_low > 2 * log(opacity / alpha_min)
+            valid = valid & (q_low <= thresh)
 
-    tile_id = jnp.where(valid, tile_id, num_tiles).astype(jnp.int32)
-    if debug_stage == "tiles":
-        return jnp.sum(tile_id)
-    # pairs the kernel will actually walk (post-cull, and never the
-    # depth-mode sentinel-tile fake slots — their computed tile id is
-    # num_tiles by construction)
-    num_pairs = jnp.sum((tile_id != num_tiles).astype(jnp.int32))
-    pair = None
-    payload = None
-    if depth_mode:
-        dq_ok = jnp.clip(dq_e, 0, (1 << depth_bits) - 1)
-        key = ((tile_id << depth_bits) | dq_ok) ^ key_xor
-        payload = rank_e         # walk order == original order here
-    elif packed_key:
-        key = ((tile_id << bits_rank) | rank_e) ^ key_xor
-    else:
-        pair = (tile_id, rank_e)
-    return _sort_and_gather(key, pair, payload=payload,
-                            sorted_rank_bits=low_bits,
-                            key_xor=key_xor, feats_d=feats_d,
-                            num_tiles=num_tiles, num_pairs=num_pairs,
-                            overflow=overflow, ntx=ntx, nty=nty,
-                            config=config, debug_stage=debug_stage)
+        tile_id = jnp.where(valid, tile_id, num_tiles).astype(jnp.int32)
+        # pairs the kernel will actually walk (post-cull, and never the
+        # depth-mode sentinel-tile fake slots — their computed tile id is
+        # num_tiles by construction)
+        num_pairs = jnp.sum((tile_id != num_tiles).astype(jnp.int32))
+        pair = None
+        payload = None
+        if depth_mode:
+            dq_ok = jnp.clip(dq_e, 0, (1 << depth_bits) - 1)
+            key = ((tile_id << depth_bits) | dq_ok) ^ key_xor
+            payload = rank_e         # walk order == original order here
+        elif packed_key:
+            key = ((tile_id << bits_rank) | rank_e) ^ key_xor
+        else:
+            pair = (tile_id, rank_e)
+    with jax.named_scope("sort_gather"):
+        return _sort_and_gather(key, pair, payload=payload,
+                                sorted_rank_bits=low_bits,
+                                key_xor=key_xor, feats_d=feats_d,
+                                num_tiles=num_tiles, num_pairs=num_pairs,
+                                overflow=overflow, ntx=ntx, nty=nty)
 
 
 def _sort_and_gather(key, pair, *, sorted_rank_bits: int, key_xor: int,
                      feats_d, num_tiles: int, num_pairs, overflow,
-                     ntx: int, nty: int, config: RenderConfig,
-                     debug_stage: str | None, payload=None):
+                     ntx: int, nty: int, payload=None):
     """Steps 4-6: tile sort, per-tile ranges, feature gather.
 
     Rank keys (``key`` given, no payload): ONE unstable single-array sort
@@ -579,9 +492,9 @@ def _sort_and_gather(key, pair, *, sorted_rank_bits: int, key_xor: int,
 
     Depth keys (``payload`` given): the key is (tile ‖ quantized depth)
     and the payload carries each slot's gaussian index through the sort
-    (one extra int32 operand, ~1.5 ms at K ~ 2M — far cheaper than the
-    N-side argsort + depth-order gather it replaces); the sorted payload
-    is the feature-gather index into the ORIGINAL-order feature table.
+    (one extra int32 operand in place of the N-side argsort + depth-order
+    gather); the sorted payload is the feature-gather index into the
+    ORIGINAL-order feature table.
     """
     if key is not None and payload is not None:
         sorted_key, sorted_rank = jax.lax.sort((key, payload), num_keys=1,
@@ -600,29 +513,16 @@ def _sort_and_gather(key, pair, *, sorted_rank_bits: int, key_xor: int,
                                                 is_stable=True)
         edge_queries = jnp.arange(num_tiles + 1, dtype=jnp.int32)
         edge_space = sorted_tile
-    if debug_stage == "sort":
-        return jnp.sum(edge_space) + jnp.sum(sorted_rank)
 
     # -- 5. per-tile ranges -------------------------------------------------
     edges = jnp.searchsorted(edge_space, edge_queries,
                              side="left").astype(jnp.int32)
     tile_start, tile_end = edges[:-1], edges[1:]
-    if debug_stage == "edges":
-        return jnp.sum(edges)
 
     # -- 6. feature gather: the one unavoidable K-gather, feature-major ----
     # Each sorted pair pulls its gaussian's packed 32-byte feature column
-    # from the DEPTH-ORDERED table in a single index operation.  The
-    # kernel's fixed-size window DMA can read up to `chunk` columns past
-    # the last pair, so the INDEX vector is padded (128 extra indices,
-    # ~free) rather than the gathered table (a full (8, K) copy); the
-    # padding columns replicate column 0 — harmless, since the kernel
-    # masks every lane by its global index against the tile's [s, e).
-    idx = jnp.concatenate(
-        [sorted_rank, jnp.zeros((config.chunk,), jnp.int32)])
-    features = jnp.take(feats_d, idx, axis=1)                  # (8, Kp)
-    if debug_stage == "gather":
-        return jnp.sum(features)
+    # in a single index operation.
+    features = jnp.take(feats_d, sorted_rank, axis=1)          # (8, K)
 
     return TileBins(features=features, tile_start=tile_start,
                     tile_end=tile_end, ranks=sorted_rank,

@@ -10,8 +10,8 @@ Compositing uses the associativity of the 'over' operator:
 the front-to-back accumulation is a cumulative product over (1 - alpha) —
 one vectorized pass instead of K sequential steps; chunks are then folded
 front-to-back with ``lax.scan``.  This replaces the reference's per-pixel
-back-to-front blend loop (src/pipelines.rs:147-168) with math the VPU
-pipelines well.
+back-to-front blend loop (src/pipelines.rs:147-168) with math that
+vectorizes well.
 """
 
 from __future__ import annotations

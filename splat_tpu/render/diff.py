@@ -1,82 +1,67 @@
 """Differentiable tiled rendering: a custom VJP for the production path.
 
 The reference is feed-forward only (SURVEY §1: "renderer, not trainer");
-round 3 added gradients through the *dense* renderer (train.py), which
-caps fitting at small-to-medium scenes — O(N·H·W) has no tile culling.
-This module gives the TILE-BINNED pipeline a backward pass, making
-production-scale scenes trainable: forward cost is the tiled pipeline's,
-backward is a second Pallas kernel over the same per-tile pair ranges.
+train.py adds gradients through the *dense* renderer, which caps fitting
+at small-to-medium scenes — O(N·H·W) has no tile culling.  This module
+gives the TILE-BINNED pipeline a backward pass, making production-scale
+scenes trainable: the forward is the compositing kernel of
+render/kernels.py in its training mode, the backward a second Pallas
+kernel over the same per-tile pair ranges.
 
-Design (the TPU formulation of the INRIA backward recurrences):
+Design (the INRIA 3DGS backward recurrences, one program per tile):
 
-* **Forward** (`_fwd_kernel`): the light-path compositing walk of
-  render/kernels.py with the approximate 1/255 saturation exit replaced
-  by an EXACT one (see "saturation cut" below), emitting RAW
-  accumulated color C (no background, no clip) plus **log T** per pixel.
+* **Forward** (``kernels.composite_tiles(train=True)``): the compositing
+  walk emitting RAW accumulated color C (no background, no clip) plus
+  **log T** per pixel and the number of pairs each tile walked.
   Log-space transmittance is what makes the backward walk possible at
   all: after thousands of opaque pairs T underflows f32, and a
   multiplicative reconstruction from T_final would zero the gradients of
   every *front* splat — log T stays finite (~-1e4) and exp() underflows
   only where the gradient is genuinely ~0.
-* **Exact saturation cut** (round 5): once EVERY pixel of a tile has
+* **Exact saturation cut**: once EVERY pixel of a tile has
   logT < SAT_CUT_LOG (-105, below which f32 exp() is exactly +0.0) AND
   the multiplicative transmittance carry reached exactly +0.0, every
   later pair's forward contribution (T·contrib) and backward gradient
   (w_i = α_i·T_i = 0, the D-suffix terms it feeds, and ḡlogT — which
   the finalize computes as g·bg·exp(logT) = exact 0) are IEEE-exact
-  zeros.  The forward therefore early-exits there and emits the
-  per-tile cut window index; the backward walks only the cut windows in
-  reverse with full compute and ZERO-FILLS the remaining windows'
-  gradient slots (the k_global row must still be written so the
-  scatter's sorted-segment accounting sees every retained pair — the
-  fill is pure write bandwidth, all the VPU/MXU work is skipped).  The
-  forward image stays bit-identical to the uncut walk and the skipped
-  pairs' gradients are IEEE-exact zeros; pre-cut pairs' gradients shift
-  within f32 reconstruction rounding (~1e-7 rel — the logT anchor is
-  now the forward's own running sum at the cut instead of the final
-  value minus a suffix: fewer subtracted terms, better conditioned).
-  The two-condition guard matters because a denormal-stalled
-  multiplicative carry (factors > 0.5 per window hold the product at
-  2^-149 forever) can keep contributing denormal-sized bits to the
-  image long after the true T underflows.
-* **Optional INRIA-style exit** (`config.train_sat_exit`): the same cut
+  zeros.  The forward therefore exits there and emits the per-tile cut
+  (pairs walked); the backward walks only the cut prefix, back to front.
+  The gradient buffer starts as zeros, so the skipped pairs' gradients
+  are exact zeros.  The two-condition guard matters because a
+  denormal-stalled multiplicative carry can keep contributing
+  denormal-sized bits to the image long after the true T underflows.
+* **Optional INRIA-style exit** (``config.train_sat_exit``): the same cut
   machinery with the INFERENCE threshold (every pixel's T < alpha_min)
-  instead of the exp-underflow one.  This reproduces the original 3DGS
-  training semantics (the reference CUDA forward stops at T < 1e-4 and
-  its backward walks only up to the last contributor): the custom VJP
-  remains EXACT for the truncated composite it actually computes, and
+  instead of the exp-underflow one: an INRIA-inspired whole-tile exit
+  (the INRIA CUDA forward stops each pixel at T < 1e-4 and its backward
+  starts from the last contributor).  The custom VJP remains EXACT for
+  the truncated composite it actually computes, and
   the truncation error vs the full walk is bounded by the residual
-  transmittance (< alpha_min) — while skipping the heavy-overdraw tail
-  entirely (17.7% of walked pair-slots at 1M@1080p surface dup 2.2,
-  concentrated in the 2% most-overdrawn tiles; scripts/satcut_probe.py).
+  transmittance (< alpha_min).
 * **Finalize in plain JAX**: img = clip(C + exp(logT)·bg) (+ coverage
   channel) sits OUTSIDE the custom_vjp, so XLA autodiff handles the
   clip/background/alpha-channel/supersample chain for free and the
-  kernel boundary stays minimal: (scene) -> (C, logT).
-* **Backward** (`_bwd_kernel`): per tile, walk the pair range in
-  REVERSE, recomputing each window's alpha exactly as the forward did
-  (the packed feature table is a forward residual).  With
+  kernel boundary stays minimal: (projected gaussians) -> (C, logT).
+* **Backward** (``_bwd_kernel``): per tile, walk the cut prefix in
+  REVERSE, recomputing each pair's alpha exactly as the forward did (the
+  packed feature table is a forward residual).  With
   ĝc_i = Σ_c ḡC_c·c_{i,c}, the recurrences per pair i (back to front):
 
-      logT_i = logT_N − Σ_{k≥i} log1p(−α_k)        (suffix sum, MXU)
+      logT_i = logT_{i+1} − log1p(−α_i)
       dL/dc_{i,c} = ḡC_c · α_i T_i
       dL/dα_i     = T_i·ĝc_i − D_i/(1−α_i),
-      D_i = ḡlogT + Σ_{k>i} ĝc_k·α_k·T_k           (suffix sum, MXU)
+      D_i = ḡlogT + Σ_{k>i} ĝc_k·α_k·T_k
 
   (D folds the background/coverage terms automatically: they reach the
   kernel through ḡlogT from the finalize chain.)  dα then chains into
-  the conic/center/color/opacity rows; per-pair gradients are reduced
-  over the tile's pixels on the MXU and written to a window-padded HBM
-  buffer (each tile owns 128-aligned regions — no cross-tile races; a
-  pair masked in one tile's boundary window writes exact zeros there
-  and its real gradient in its own tile's region).
+  the conic/center/color/opacity rows; each pair's nine gradient rows
+  are summed over the tile's pixels and written at the pair's own sorted
+  slot (a pair belongs to exactly one tile, so writes never collide).
 * **Segment-sum + pullback in XLA**: per-pair gradients reduce to
   per-gaussian cotangents by sorting on the pair→gaussian index map
-  (`bins.ranks`) and differencing a compensated running cumsum at
+  (``bins.ranks``) and differencing a compensated running cumsum at
   segment boundaries the binning's own count arithmetic provides
-  (`_scatter_pair_grads` — no K-scale scatter: an XLA scatter-add runs
-  at ~87 ns/index on TPU vs the ~5 ns gather floor, 480 ms vs ~70 ms
-  measured at 1M@1080p).  `jax.vjp` of the pure-JAX projection then
+  (``_scatter_pair_grads``).  ``jax.vjp`` of the pure-JAX projection then
   pulls them back to scene parameters (and the camera pose — pose
   gradients come free).  The u16/bit packing of the feature table is
   treated straight-through: gradients are assigned to the unquantized
@@ -88,8 +73,7 @@ visibility/keep indicators, radii) correctly contributes zero cotangent.
 
 Restrictions (checked): render_mode="color" or "depth" (the latter
 with an explicit depth_range — depth-supervised training),
-binning_key="depth", subtile_exit off, cull_pairs off, transmit_mxu on
-— the production defaults.
+binning_key="depth", cull_pairs off — the production defaults.
 
 Match: beyond the reference (no training anywhere in it); the dense-path
 gradients this extends are train.py; the INRIA backward this
@@ -99,500 +83,92 @@ forward algorithm.
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 import math
-from functools import partial
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from splat_tpu.camera import Camera
 from splat_tpu.config import RenderConfig
 from splat_tpu.ops.projection import project_gaussians
-from splat_tpu.render.binning import FEATURE_DIM, _R15_MAX, build_tile_bins
+from splat_tpu.render import kernels as K
+from splat_tpu.render.binning import FEATURE_DIM, build_tile_bins
+from splat_tpu.render.route import kernel_route
 
-NBUF = 4          # read-DMA slots (2-window lookahead)
-NWBUF = 2         # write-DMA slots (backward gradient windows)
-# Per-pair gradient rows 0-8: [dcx, dcy, da2, db2, dc2, dcr, dcg, dcb,
-# dop]; row 9 carries each slot's GAUSSIAN ID as an f32 VALUE (exact
-# below N = 2^24; -1 marks window-padding slots).  The id reaches the
-# kernel as feature-table row 8 (bins.ranks IS the binning sort's
-# payload — no gather needed to build it), which lets the scatter stage
-# sort by gaussian directly instead of paying a 1-row K-gather through
-# bins.ranks at padded-slot scale (~10 ns/index floor in every XLA
-# formulation — 25.6 ms at 1M@1080p, the largest single piece of the
-# scatter; scripts/scatterprobe.py + the ranks-gather variant probe).
-# Padded to 16 rows because Mosaic DMA slices need 8-aligned sublane
-# counts (CLAUDE.md rule 12) — the zero rows cost ~0.1 ms of write
-# bandwidth at K~2.6M.
-GRAD_SEM = 9
-GRAD_KG = 9
-GRAD_ROWS = 16
-# Backward-kernel feature table: binning's 8 packed rows + the gaussian
-# id (row 8) + zero padding to the 8-aligned DMA row count.
-BWD_FEAT_ROWS = 16
+# Per-pair gradient rows: [dcx, dcy, da2, db2, dc2, dcr, dcg, dcb, dop],
+# against the PACKED feature values (conic prescaled as -a/2, -b, -c/2).
+GRAD_ROWS = 9
 
 # The exact-saturation threshold: exp(x) == +0.0 in f32 for every
-# x < ln(2^-150) ~ -103.97; -105 leaves margin.  Pairs behind a window
+# x < ln(2^-150) ~ -103.97; -105 leaves margin.  Pairs behind a batch
 # where ALL pixels are below it (and the multiplicative carry reached
 # exact +0.0 — see the module docstring on denormal stall) have
 # bit-exact zero forward contributions and gradients, so cutting there
 # is not an approximation.  Tests may monkeypatch to -inf to disable.
 SAT_CUT_LOG = -105.0
 
-# Check saturation once per this many windows in the forward walk (the
-# check itself costs ~0.18 us/window; grouping amortizes it — see
-# _fwd_kernel).  The cut index stays exact; only its granularity (and
-# therefore how much work the cut can skip) quantizes to this.
-SAT_CHECK_EVERY = 4
 
-
-def _window_decode(f, skip_bbox: bool):
-    """Packed feature rows -> per-window rows (render/kernels.py decode)."""
-    frow = lambda i: jax.lax.bitcast_convert_type(f[i:i + 1, :], jnp.float32)
-    lo16 = lambda i: (f[i:i + 1, :] & 0xFFFF).astype(jnp.float32)
-    hi16 = lambda i: ((f[i:i + 1, :] >> 16) & 0xFFFF).astype(jnp.float32)
-    inv_u16 = 1.0 / 65535.0
-    colors = jnp.concatenate([lo16(5), hi16(5), lo16(6)]) * inv_u16
-    w = dict(cx=frow(0), cy=frow(1), a2=frow(2), b2=frow(3), c2=frow(4),
-             colors=colors, op_raw=hi16(6) * inv_u16)
-    if not skip_bbox:
-        rxq = f[7:8, :] & 0x7FFF
-        ryq = (f[7:8, :] >> 15) & 0x7FFF
-        rx = rxq.astype(jnp.float32) * 0.125
-        ry = ryq.astype(jnp.float32) * 0.125
-        w["rx2"] = jnp.where(rxq == _R15_MAX, jnp.inf, rx * rx)
-        w["ry2"] = jnp.where(ryq == _R15_MAX, jnp.inf, ry * ry)
-    return w
-
-
-def _dekker_dot(x, tri):
-    """f32-faithful (rows, C) @ (C, C) 0/1 contraction via two DEFAULT
-    bf16 passes (Dekker bit-mask split; never f32(bf16(x)) round-trips —
-    XLA's excess-precision pass elides those)."""
-    xb = jax.lax.bitcast_convert_type(
-        jax.lax.bitcast_convert_type(x, jnp.int32) & ~jnp.int32(0xFFFF),
-        jnp.float32)
-    xl = x - xb
-    dot = lambda a_: jax.lax.dot_general(
-        a_, tri, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32)
-    return dot(xb) + dot(xl)
-
-
-def _alpha_window(w, op, pxc, pyc, alpha_clamp, alpha_min, skip_bbox):
-    """Recompute one window's alpha exactly as the forward kernel does.
-    Returns (alpha_final, expp, unclamped&keep mask pieces)."""
-    dx = pxc - w["cx"]
-    dy = w["cy"] - pyc
-    dx2 = dx * dx
-    dy2 = dy * dy
-    dxdy = dx * dy
-    power = w["a2"] * dx2 + w["c2"] * dy2 + w["b2"] * dxdy
-    expp = jnp.exp(power)
-    a_raw = op * expp
-    alpha = jnp.minimum(alpha_clamp, a_raw)
-    if skip_bbox:
-        keep = alpha >= alpha_min
-    else:
-        keep = ((alpha >= alpha_min) & (dx2 <= w["rx2"]) & (dy2 <= w["ry2"]))
-    alpha = jnp.where(keep, alpha, 0.0)
-    unclamped = a_raw < alpha_clamp
-    return alpha, expp, keep, unclamped, dx, dy, dx2, dy2, dxdy
-
-
-# --------------------------------------------------------------------------
-# Forward (training) kernel: light-path walk, no early exit, raw C + logT.
-# --------------------------------------------------------------------------
-
-def _fwd_kernel(start_ref, end_ref, feat_hbm, out_ref,
-                feat_vmem, sem, img_ref, tr_ref, ltr_ref,
-                *, chunk, tile_w, tile_h, tiles_x, bs0, bs1,
-                alpha_clamp, alpha_min, color_precision, skip_bbox,
-                sat_cut_log, sat_exit):
+def _bwd_kernel(start_ref, cut_ref, feat_ref, gc_ref, glt_ref, lt_ref,
+                zeros_ref, grads_ref, *, tile_w: int, tile_h: int,
+                tiles_x: int, alpha_clamp: float, alpha_min: float,
+                skip_bbox: bool):
+    del zeros_ref                    # aliased to grads_ref (zero-filled)
     t = pl.program_id(0)
     s = start_ref[t]
-    e = end_ref[t]
-    base = (s // 128) * 128
-    nchunks = (e - base + chunk - 1) // chunk
-    p = bs0 * bs1
-    tile_y = t // tiles_x
-    tile_x = t % tiles_x
-
-    img_ref[...] = jnp.zeros((p, 3), jnp.float32)
-    tr_ref[...] = jnp.ones((p, 1), jnp.float32)
-    ltr_ref[...] = jnp.zeros((p, 1), jnp.float32)
-
-    r_lin = jax.lax.broadcasted_iota(jnp.int32, (p, 1), 0)
-    pxf = (tile_x * tile_w + r_lin % tile_w).astype(jnp.float32)
-    pyf = (tile_y * tile_h + r_lin // tile_w).astype(jnp.float32)
-
-    ti = jax.lax.broadcasted_iota(jnp.int32, (chunk, chunk), 0)
-    tj = jax.lax.broadcasted_iota(jnp.int32, (chunk, chunk), 1)
-    tri_excl = (ti < tj).astype(jnp.float32)
-
-    def dma(slot, j):
-        off = pl.multiple_of(base + j * chunk, 128)
-        return pltpu.make_async_copy(feat_hbm.at[:, pl.ds(off, chunk)],
-                                     feat_vmem.at[slot], sem.at[slot])
-
-    @pl.when(nchunks > 0)
-    def _():
-        dma(0, 0).start()
-
-    @pl.when(nchunks > 1)
-    def _():
-        dma(1, 1).start()
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, chunk), 1)
-
-    def window(j):
-        slot = jax.lax.rem(j, NBUF)
-        dma(slot, j).wait()
-
-        @pl.when(j + 2 < nchunks)
-        def _():
-            dma(jax.lax.rem(j + 2, NBUF), j + 2).start()
-
-        w = _window_decode(feat_vmem[slot], skip_bbox)
-        k_global = base + j * chunk + lane
-        op = jnp.where((k_global >= s) & (k_global < e), w["op_raw"], 0.0)
-        alpha, _, _, _, _, _, _, _, _ = _alpha_window(
-            w, op, pxf, pyf, alpha_clamp, alpha_min, skip_bbox)
-
-        # MXU log-space exclusive prefix (render/kernels.py transmit_mxu)
-        if alpha_clamp < 0.999999:
-            x = jnp.log1p(-alpha)
-        else:
-            x = jnp.log1p(-jnp.minimum(alpha, 0.999999))
-        s_log = _dekker_dot(x, tri_excl)
-        t_before = jnp.exp(s_log)
-        lt_chunk = s_log[:, -1:] + x[:, -1:]
-
-        transmit = tr_ref[...]
-        weight = alpha * t_before
-        contrib = jax.lax.dot_general(
-            weight, w["colors"], (((1,), (1,)), ((), ())),
-            precision=color_precision, preferred_element_type=jnp.float32)
-        img_ref[...] = img_ref[...] + transmit * contrib
-        # carry BOTH multiplicative T (weights; bit-parity with inference)
-        # and additive logT (the backward's anchor)
-        tr_ref[...] = transmit * jnp.exp(lt_chunk)
-        ltr_ref[...] = ltr_ref[...] + lt_chunk
-
-    def sat_now():
-        if sat_exit:
-            # INRIA-style exit at the INFERENCE threshold
-            # (config.train_sat_exit): the walk stops where the light
-            # path's whole-tile exit would, the backward walks only the
-            # composited prefix, and the custom VJP stays exact for the
-            # truncated function actually computed.
-            return jnp.max(tr_ref[...]) < alpha_min
-        # exact saturation: every later contribution AND gradient is an
-        # IEEE-exact zero (module docstring) — both conditions required
-        return ((jnp.max(ltr_ref[...]) < sat_cut_log)
-                & (jnp.max(tr_ref[...]) == 0.0))
-
-    # Bulk walk in groups of SAT_CHECK_EVERY windows with ONE saturation
-    # check per group: the per-window check (two (P,1) reductions + the
-    # while-loop condition) measures ~0.18 us/window — ~3 ms/frame at
-    # the 1M@1080p operating point — so it is amortized 4x here.  Exit
-    # granularity coarsens by <= G-1 windows, which only shrinks the
-    # saved work slightly (the skipped windows are exact zeros either
-    # way, so correctness is untouched).
-    n_full = nchunks // SAT_CHECK_EVERY
-
-    def gbody(carry):
-        g_i, _ = carry
-        j0 = g_i * SAT_CHECK_EVERY
-        for i in range(SAT_CHECK_EVERY):
-            window(j0 + i)
-        return g_i + 1, sat_now()
-
-    def gcond(carry):
-        g_i, saturated = carry
-        return (g_i < n_full) & jnp.logical_not(saturated)
-
-    g_end, sat = jax.lax.while_loop(gcond, gbody,
-                                    (jnp.int32(0), jnp.bool_(False)))
-
-    # Tail (< SAT_CHECK_EVERY windows; also the no-op path when the
-    # group loop exited saturated — the carried flag stops it at entry).
-    def tbody(carry):
-        j, _ = carry
-        window(j)
-        return j + 1, sat_now()
-
-    def tcond(carry):
-        j, saturated = carry
-        return (j < nchunks) & jnp.logical_not(saturated)
-
-    j_end, _ = jax.lax.while_loop(
-        tcond, tbody, (g_end * SAT_CHECK_EVERY, sat))
-
-    # drain in-flight fetches on early exit (body j issues j + 2)
-    @pl.when(j_end < nchunks)
-    def _():
-        dma(jax.lax.rem(j_end, NBUF), j_end).wait()
-
-    @pl.when(j_end + 1 < nchunks)
-    def _():
-        dma(jax.lax.rem(j_end + 1, NBUF), j_end + 1).wait()
-
-    img = img_ref[...]
-    for c in range(3):
-        out_ref[c, 0] = img[:, c:c + 1].reshape(bs0, bs1)
-    out_ref[3, 0] = ltr_ref[...].reshape(bs0, bs1)
-    # per-tile cut window count as a broadcast f32 plane (exact: window
-    # counts << 2^24).  Mosaic rejects sub-(8,128) output blocks, so a
-    # dedicated (T, 1) output is not expressible; one extra (bs0, bs1)
-    # plane per tile is ~9 MB of writes at 1080p (~0.01 ms).
-    out_ref[4, 0] = jnp.full((bs0, bs1), j_end.astype(jnp.float32))
-
-
-# --------------------------------------------------------------------------
-# Backward kernel: reverse walk, per-pair gradients to a padded buffer.
-# --------------------------------------------------------------------------
-
-def _bwd_kernel(start_ref, end_ref, padbase_ref, cut_ref, feat_hbm,
-                g_ref, glt_ref, lt_ref, grad_hbm, dummy_ref,
-                feat_vmem, sem, gvm, wsem,
-                *, chunk, tile_w, tile_h, tiles_x, bs0, bs1,
-                alpha_clamp, alpha_min, skip_bbox):
-    t = pl.program_id(0)
-    s = start_ref[t]
-    e = end_ref[t]
-    base = (s // 128) * 128
-    nchunks = (e - base + chunk - 1) // chunk
-    # forward's exact saturation cut: windows >= cut hold bit-exact-zero
-    # gradients — the reverse walk covers [0, cut) with full compute and
-    # a zero-fill pass covers [cut, nchunks) (writes only, no reads)
     cut = cut_ref[t]
-    pad_base = padbase_ref[t]
-    p = bs0 * bs1
-    tile_y = t // tiles_x
-    tile_x = t % tiles_x
-    dummy_ref[...] = jnp.zeros((1, 1), jnp.float32)
-
-    r_lin = jax.lax.broadcasted_iota(jnp.int32, (p, 1), 0)
-    pxf = (tile_x * tile_w + r_lin % tile_w).astype(jnp.float32)
-    pyf = (tile_y * tile_h + r_lin // tile_w).astype(jnp.float32)
-
-    ti = jax.lax.broadcasted_iota(jnp.int32, (chunk, chunk), 0)
-    tj = jax.lax.broadcasted_iota(jnp.int32, (chunk, chunk), 1)
-    suf_incl = (ti >= tj).astype(jnp.float32)   # out[:, i] = sum_{k>=i}
-    suf_excl = (ti > tj).astype(jnp.float32)    # out[:, i] = sum_{k>i}
-
-    # (P, 3) pixel-gradient block and (P, 1) anchors.  The host passes
-    # these tiled as (C, T, P, 1) — P on sublanes already — because
-    # Mosaic cannot shape-cast a (bs0, bs1) block into (P, 1) (lane ->
-    # sublane relayout; the reverse direction, used by the forward's
-    # output writes, is supported).
-    gc3 = jnp.concatenate(
-        [g_ref[c, 0] for c in range(3)], axis=1)                 # (P, 3)
-    glt = glt_ref[0, 0]
-    lt_n = lt_ref[0, 0]
-
-    def dma(slot, j):
-        off = pl.multiple_of(base + j * chunk, 128)
-        return pltpu.make_async_copy(feat_hbm.at[:, pl.ds(off, chunk)],
-                                     feat_vmem.at[slot], sem.at[slot])
-
-    def wdma(slot, j):
-        off = pl.multiple_of(pad_base + j * chunk, 128)
-        return pltpu.make_async_copy(gvm.at[slot],
-                                     grad_hbm.at[:, pl.ds(off, chunk)],
-                                     wsem.at[slot])
-
-    # reverse prefetch: windows cut-1, cut-2 (the walk starts at the cut;
-    # the forward's residual logT plane is the value AT the cut, so the
-    # carries are seeded exactly as if the skipped windows were walked —
-    # their x-sums are definitionally absent from the anchor)
-    @pl.when(cut > 0)
-    def _():
-        dma(jax.lax.rem(cut - 1, NBUF), cut - 1).start()
-
-    @pl.when(cut > 1)
-    def _():
-        dma(jax.lax.rem(cut - 2, NBUF), cut - 2).start()
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, chunk), 1)
+    y0 = (t // tiles_x) * tile_h
+    x0 = (t % tiles_x) * tile_w
+    shape = (tile_h, tile_w)
+    px = (x0 + jax.lax.broadcasted_iota(jnp.int32, shape, 1)).astype(
+        jnp.float32)
+    py = (y0 + jax.lax.broadcasted_iota(jnp.int32, shape, 0)).astype(
+        jnp.float32)
+    rows, cols = pl.ds(y0, tile_h), pl.ds(x0, tile_w)
+    gr = gc_ref[rows, cols, 0]
+    gg = gc_ref[rows, cols, 1]
+    gb = gc_ref[rows, cols, 2]
 
     def body(step, carry):
-        d_carry, lt_end = carry                 # (P,1), (P,1)
-        j = cut - 1 - step
-        slot = jax.lax.rem(j, NBUF)
-        dma(slot, j).wait()
-
-        @pl.when(j - 2 >= 0)
-        def _():
-            dma(jax.lax.rem(j - 2, NBUF), j - 2).start()
-
-        f_all = feat_vmem[slot]
-        w = _window_decode(f_all, skip_bbox)
-        k_global = base + j * chunk + lane
-        op = jnp.where((k_global >= s) & (k_global < e), w["op_raw"], 0.0)
-        alpha, expp, keep, unclamped, dx, dy, dx2, dy2, dxdy = \
-            _alpha_window(w, op, pxf, pyf, alpha_clamp, alpha_min,
-                          skip_bbox)
-
-        if alpha_clamp < 0.999999:
-            x = jnp.log1p(-alpha)
-        else:
-            x = jnp.log1p(-jnp.minimum(alpha, 0.999999))
-        ssum = _dekker_dot(x, suf_incl)               # inclusive suffix
-        lt_i = lt_end - ssum                           # logT before pair i
-        # Crop-padded pixels (h/w not tile multiples) enter with a ZERO
-        # logT anchor (their true forward value was cropped away), so
-        # their reconstructed lt_i grows large-POSITIVE under heavy
-        # occlusion and exp would overflow to inf — turning their zero
-        # cotangents into inf*0 = NaN, which the pixel reduction then
-        # spreads to every per-pair gradient in the window.  True logT
-        # is <= 0 by construction, so the clamp is exact for real pixels
-        # and forces pad pixels' contributions to exact zeros.
+        d, lt_after = carry                 # D_i and logT after pair i
+        k = s + cut - 1 - step
+        g = K.decode_features([feat_ref[r, k] for r in range(FEATURE_DIM)],
+                              skip_bbox)
+        alpha, expp, keep, unclamped, dx, dy = K.pair_alpha(
+            g, g["op"], px, py, alpha_clamp, alpha_min, skip_bbox)
+        lt_i = lt_after - K.log_one_minus(alpha, alpha_clamp)
+        # True logT is <= 0; the clamp only guards pixels whose anchor
+        # is meaningless (their cotangents are zero), where exp could
+        # otherwise overflow and turn 0 * inf into NaN.
         t_i = jnp.exp(jnp.minimum(lt_i, 0.0))
-        wgt = alpha * t_i                              # w_i = alpha T_i
-
-        # ĝc_i = sum_c gC_c c_{i,c}: a contraction of length THREE — as a
-        # matmul this pads to the MXU tile and HIGHEST multiplies the
-        # pass count by 6; five exact VPU passes beat it (measured: the
-        # kernel's low-utilization dots cost ~2x the whole VPU body)
-        gc_w = (gc3[:, 0:1] * w["colors"][0:1, :]
-                + gc3[:, 1:2] * w["colors"][1:2, :]
-                + gc3[:, 2:3] * w["colors"][2:3, :])   # (P, chunk)
-        gw = gc_w * wgt
-
-        # D_i = glogT + suffix_excl(gw) + carry-from-later-windows
-        gw_suf = _dekker_dot(gw, suf_excl)
-        d_i = d_carry + gw_suf
-        if alpha_clamp < 0.999999:
-            denom = 1.0 - alpha
+        wgt = alpha * t_i                                 # w_i = alpha T_i
+        gc_w = gr * g["r"] + gg * g["g"] + gb * g["b"]
+        if alpha_clamp >= K._ALPHA_LOG_MAX:
+            # alpha can reach exactly 1.0 (u16 opacity 65535 where
+            # exp(power) rounds to 1); guard as the forward's log does
+            denom = 1.0 - jnp.minimum(alpha, K._ALPHA_LOG_MAX)
         else:
-            # alpha can reach exactly 1.0 in the clamp~1 regime (u16
-            # opacity 65535 at a pixel where exp(power) rounds to 1);
-            # those lanes are masked below, but inf * 0 = NaN — guard
-            # the denominator the same way the forward guards its log.
-            denom = 1.0 - jnp.minimum(alpha, 0.999999)
-        da = t_i * gc_w - d_i / denom
-        # chain through alpha = keep * min(clamp, op * expp)
-        mask = (keep & unclamped).astype(jnp.float32)
-        dp = da * alpha * mask                        # d power (alpha=a_raw
-        #                                               when kept&unclamped)
-        dop_pp = da * expp * mask                     # d opacity per pixel
+            denom = 1.0 - alpha
+        da = t_i * gc_w - d / denom
+        live = keep & unclamped        # alpha = op * exp(power) there
+        dp = jnp.where(live, da * alpha, 0.0)             # d power
+        dop = jnp.where(live, da * expp, 0.0)             # d opacity
+        r_dx = jnp.sum(dp * dx)
+        r_dy = jnp.sum(dp * dy)
+        # power = a2 dx^2 + c2 dy^2 + b2 dx dy; dx = px - cx, dy = cy - py
+        vals = (-(2.0 * g["a2"] * r_dx + g["b2"] * r_dy),
+                2.0 * g["c2"] * r_dy + g["b2"] * r_dx,
+                jnp.sum(dp * dx * dx), jnp.sum(dp * dx * dy),
+                jnp.sum(dp * dy * dy),
+                jnp.sum(gr * wgt), jnp.sum(gg * wgt), jnp.sum(gb * wgt),
+                jnp.sum(dop))
+        for r, v in enumerate(vals):
+            grads_ref[r, k] = v
+        return d + gc_w * wgt, lt_i
 
-        # pixel reductions: (P, chunk) -> (1, chunk) SUBLANE sums on the
-        # VPU — exact f32, and ~128x better hardware utilization than a
-        # single-output-row (1,P)@(P,chunk) MXU dot (which pads its
-        # output tile to 128 rows; at HIGHEST it also 6x-es the passes)
-        red = lambda m: jnp.sum(m, axis=0, keepdims=True)  # (1, chunk)
-        r_dx2 = red(dp * dx2)
-        r_dy2 = red(dp * dy2)
-        r_dxdy = red(dp * dxdy)
-        r_dx = red(dp * dx)
-        r_dy = red(dp * dy)
-        r_dop = red(dop_pp)
-        # dcolor rows: sum_p gC_c[p] * wgt[p, k] — three more VPU
-        # mult+sublane-sum passes (contraction length 3 again)
-        d_col = jnp.concatenate(
-            [red(gc3[:, c:c + 1] * wgt) for c in range(3)])  # (3, chunk)
-
-        # power = a2 dx2 + c2 dy2 + b2 dxdy; dx = px - cx, dy = cy - py
-        d_cx = -(2.0 * w["a2"] * r_dx + w["b2"] * r_dy)
-        d_cy = 2.0 * w["c2"] * r_dy + w["b2"] * r_dx
-
-        wslot = jax.lax.rem(step, NWBUF)
-
-        @pl.when(step >= NWBUF)
-        def _():
-            wdma(wslot, cut - 1 - (step - NWBUF)).wait()
-
-        gvm[wslot, 0:1] = d_cx
-        gvm[wslot, 1:2] = d_cy
-        gvm[wslot, 2:3] = r_dx2
-        gvm[wslot, 3:4] = r_dxdy
-        gvm[wslot, 4:5] = r_dy2
-        gvm[wslot, 5:8] = d_col
-        gvm[wslot, 8:9] = r_dop
-        # the pair's gaussian id (feature row 8) as an exact f32 integer
-        # (N < 2^24 guaranteed by the host-side fallback guard); -1
-        # flags window-padding slots
-        gid_f = f_all[FEATURE_DIM:FEATURE_DIM + 1, :].astype(jnp.float32)
-        gvm[wslot, GRAD_KG:GRAD_KG + 1] = jnp.where(
-            (k_global >= s) & (k_global < e), gid_f, -1.0)
-        for z in range(GRAD_KG + 1, GRAD_ROWS):
-            gvm[wslot, z:z + 1] = jnp.zeros((1, chunk), jnp.float32)
-        wdma(wslot, j).start()
-
-        # carries: D gains this whole window; logT retreats to window
-        # start (inclusive suffix at lane 0 is the full lane sum)
-        d_new = d_carry + gw_suf[:, 0:1] + gw[:, 0:1]
-        lt_new = lt_end - ssum[:, 0:1]
-        return d_new, lt_new
-
-    (d_f, lt_f) = jax.lax.fori_loop(
-        0, cut, body, (glt, lt_n))
-    del d_f, lt_f
-
-    # drain outstanding gradient writes: the last min(NWBUF, cut)
-    # steps are unwaited; step s wrote window j = cut - 1 - s
-    for k in range(NWBUF):
-        @pl.when(cut > k)
-        def _(k=k):
-            wdma(jax.lax.rem(cut - 1 - k, NWBUF), k).wait()
-
-    # zero-fill the cut windows [cut, nchunks): their gradients are
-    # zeros, but the gaussian-id row must still mark which slots are
-    # real pairs — the scatter's segment offsets count EVERY retained
-    # pair, so absent slots would shift every later gaussian's segment
-    # boundary.  The id lives in feature row 8, so each skipped window
-    # costs one (16, chunk) read + one (16, chunk) write and no alpha
-    # math (2-deep read pipeline; the main reverse walk has drained all
-    # its read slots by construction — every started window is waited
-    # by its own body).
-    zeros_sem = jnp.zeros((GRAD_KG, chunk), jnp.float32)
-    zeros_pad = jnp.zeros((GRAD_ROWS - GRAD_KG - 1, chunk), jnp.float32)
-
-    @pl.when(cut < nchunks)
-    def _():
-        dma(jax.lax.rem(cut, NBUF), cut).start()
-
-    @pl.when(cut + 1 < nchunks)
-    def _():
-        dma(jax.lax.rem(cut + 1, NBUF), cut + 1).start()
-
-    def zbody(j, _):
-        rslot = jax.lax.rem(j, NBUF)
-        dma(rslot, j).wait()
-
-        @pl.when(j + 2 < nchunks)
-        def _():
-            dma(jax.lax.rem(j + 2, NBUF), j + 2).start()
-
-        zslot = jax.lax.rem(j - cut, NWBUF)
-
-        @pl.when(j - cut >= NWBUF)
-        def _():
-            wdma(zslot, j - NWBUF).wait()
-
-        gvm[zslot, 0:GRAD_KG] = zeros_sem
-        k_g = base + j * chunk + lane
-        gid_f = feat_vmem[rslot][FEATURE_DIM:FEATURE_DIM + 1, :].astype(
-            jnp.float32)
-        gvm[zslot, GRAD_KG:GRAD_KG + 1] = jnp.where(
-            (k_g >= s) & (k_g < e), gid_f, -1.0)
-        gvm[zslot, GRAD_KG + 1:GRAD_ROWS] = zeros_pad
-        wdma(zslot, j).start()
-        return 0
-
-    jax.lax.fori_loop(cut, nchunks, zbody, 0)
-    for k in range(NWBUF):
-        @pl.when(nchunks - cut > k)
-        def _(k=k):
-            wdma(jax.lax.rem(nchunks - 1 - k - cut, NWBUF),
-                 nchunks - 1 - k).wait()
+    jax.lax.fori_loop(0, cut, body,
+                      (glt_ref[rows, cols], lt_ref[rows, cols]))
 
 
 # --------------------------------------------------------------------------
@@ -601,16 +177,14 @@ def _bwd_kernel(start_ref, end_ref, padbase_ref, cut_ref, feat_hbm,
 
 def _check_config(config: RenderConfig):
     if config.render_mode == "depth":
-        # Depth supervision (round 5): normalized depth rides the color
-        # rows through the SAME pure-JAX projection the VJP pulls back
+        # Depth supervision: normalized depth rides the color rows
+        # through the SAME pure-JAX projection the VJP pulls back
         # through, so the kernel pair needs no change — but the range
         # must be explicit: the auto range is a per-frame min/max over
         # visible depths, and gradients flowing through data-dependent
         # normalization BOUNDS would couple every splat's depth gradient
         # to the current extremes (and per-step range drift would make
-        # the loss non-stationary).  Validated against the dense path's
-        # autodiff to ~1e-2 rel (u16 feature quantization, the same
-        # noise scale as color mode) — tests/test_diff.py.
+        # the loss non-stationary).
         if config.depth_range is None:
             raise NotImplementedError(
                 "render_tiled_diff in depth mode needs an explicit "
@@ -624,205 +198,64 @@ def _check_config(config: RenderConfig):
     if config.binning_key != "depth":
         raise NotImplementedError(
             "render_tiled_diff requires binning_key='depth'")
-    if config.subtile_exit or config.cull_pairs:
+    if config.cull_pairs:
         raise NotImplementedError(
-            "render_tiled_diff requires subtile_exit=False, "
-            "cull_pairs=False")
-    if not config.transmit_mxu:
-        raise NotImplementedError(
-            "render_tiled_diff requires transmit_mxu=True: its forward "
-            "kernel's log-space transmittance IS the MXU formulation, "
-            "and following the VPU-cumprod inference path would break "
-            "the bit-parity contract with render_tiled")
+            "render_tiled_diff requires cull_pairs=False")
 
 
-def _proj_arrays(scene, camera, config):
-    """The differentiable projected quantities, plus the full projection
-    record as a non-differentiated auxiliary (``jax.vjp(..., has_aux)``):
-    the backward needs proj.radius_px/visible for the segment offsets and
-    proj.color/opacity for the straight-through masks, and threading them
-    through the SAME trace guarantees one projection pass per backward
-    instead of relying on XLA CSE to merge a duplicate."""
-    proj = project_gaussians(scene, camera, config)
-    return (proj.center_px, proj.conic, proj.color, proj.opacity), proj
+def _fwd_raster(bins, config):
+    """Training forward: the padded (Hp, Wp, 4) plane of raw C + logT and
+    the per-tile cut (pairs walked; the backward walks only these, later
+    pairs hold exact-zero gradients)."""
+    return K.composite_tiles(bins, config, train=True,
+                             sat_cut_log=float(SAT_CUT_LOG))
 
 
-def _fwd_raster(bins, h, w, config, interpret):
+def _bwd_raster(bins, g_c, g_lt, lt_pad, cut, config):
+    """Run the backward kernel: (GRAD_ROWS, K) per-pair gradients in the
+    sorted slot order of ``bins`` (zeros past each tile's cut and in
+    unused capacity slots).
+
+    ``g_c``/``g_lt`` are the cotangents of the cropped (H, W) raw C and
+    logT; ``lt_pad`` is the forward's padded logT plane."""
     tw, th = config.tile_w, config.tile_h
-    bs0, bs1 = config.block_shape
     ntx, nty = bins.tiles_x, bins.tiles_y
-    num_tiles = ntx * nty
-    chunk = config.chunk
-    p = tw * th
-
+    hp, wp = lt_pad.shape
+    h, w = g_lt.shape
+    pad = ((0, hp - h), (0, wp - w))
+    g_c = jnp.pad(g_c, pad + ((0, 0),))
+    g_lt = jnp.pad(g_lt, pad)
     kernel = functools.partial(
-        _fwd_kernel, chunk=chunk, tile_w=tw, tile_h=th, tiles_x=ntx,
-        bs0=bs0, bs1=bs1, alpha_clamp=config.alpha_clamp,
-        alpha_min=config.alpha_min,
-        color_precision=(jax.lax.Precision.HIGHEST
-                         if config.exact_color_accum
-                         else jax.lax.Precision.DEFAULT),
-        skip_bbox=not math.isfinite(config.sigma_cutoff),
-        sat_cut_log=float(SAT_CUT_LOG),
-        sat_exit=bool(config.train_sat_exit))
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(num_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=pl.BlockSpec((5, 1, bs0, bs1), lambda t, *_: (0, t, 0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((NBUF, FEATURE_DIM, chunk), jnp.int32),
-            pltpu.SemaphoreType.DMA((NBUF,)),
-            pltpu.VMEM((p, 3), jnp.float32),
-            pltpu.VMEM((p, 1), jnp.float32),
-            pltpu.VMEM((p, 1), jnp.float32),
-        ])
-
-    out = pl.pallas_call(
-        kernel, grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((5, num_tiles, bs0, bs1),
-                                       jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )(bins.tile_start, bins.tile_end, bins.features)
-
-    cut = out[4, :, 0, 0].astype(jnp.int32)
-    img = out[:4].reshape(4, nty, ntx, th, tw)
-    img = img.transpose(1, 3, 2, 4, 0).reshape(nty * th, ntx * tw, 4)
-    img = img[:h, :w]
-    # raw C, logT, per-tile saturation-cut window count (the backward
-    # walks only these windows; later ones hold exact-zero gradients)
-    return img[..., :3], img[..., 3], cut
-
-
-def _tile_planes(arr, h, w, th, tw, nty, ntx):
-    """(H, W, C) -> (C, T, P, 1): the forward untile, inverted, with the
-    tile's pixels on the SUBLANE axis (kernel accumulator layout —
-    in-kernel (bs0, bs1) -> (P, 1) shape casts are unsupported)."""
-    c = arr.shape[-1]
-    pad_h = nty * th - h
-    pad_w = ntx * tw - w
-    a = jnp.pad(arr, ((0, pad_h), (0, pad_w), (0, 0)))
-    a = a.reshape(nty, th, ntx, tw, c).transpose(4, 0, 2, 1, 3)
-    return a.reshape(c, nty * ntx, th * tw, 1)
-
-
-def _bwd_raster(bins, g_c, g_lt, lt, cut, h, w, config, interpret):
-    """Run the backward kernel; returns (9, KP2) per-pair grads, the
-    padded-slot -> pair-slot base table, and window counts.
-
-    ``cut``: (num_tiles,) int32 per-tile saturation-cut window counts
-    from the forward (_fwd_raster's third output) — the reverse walk
-    computes only these windows and zero-fills the rest."""
-    tw, th = config.tile_w, config.tile_h
-    bs0, bs1 = config.block_shape
-    ntx, nty = bins.tiles_x, bins.tiles_y
-    num_tiles = ntx * nty
-    chunk = config.chunk
-    k_cap = bins.ranks.shape[0]
-    kp2 = k_cap + num_tiles * 2 * chunk        # static window-padding bound
-
-    s_t = bins.tile_start
-    e_t = bins.tile_end
-    base_t = (s_t // 128) * 128
-    nch_t = jnp.maximum((e_t - base_t + chunk - 1) // chunk, 0)
-    pad_base = jnp.concatenate(
-        [jnp.zeros((1,), jnp.int32),
-         jnp.cumsum(nch_t * chunk).astype(jnp.int32)])
-
-    g_tiles = _tile_planes(g_c, h, w, th, tw, nty, ntx)          # (3,T,..)
-    glt_tiles = _tile_planes(g_lt[..., None], h, w, th, tw, nty, ntx)
-    lt_tiles = _tile_planes(lt[..., None], h, w, th, tw, nty, ntx)
-
-    kernel = functools.partial(
-        _bwd_kernel, chunk=chunk, tile_w=tw, tile_h=th, tiles_x=ntx,
-        bs0=bs0, bs1=bs1, alpha_clamp=config.alpha_clamp,
-        alpha_min=config.alpha_min,
+        _bwd_kernel, tile_w=tw, tile_h=th, tiles_x=ntx,
+        alpha_clamp=config.alpha_clamp, alpha_min=config.alpha_min,
         skip_bbox=not math.isfinite(config.sigma_cutoff))
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(num_tiles,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),                   # features
-            pl.BlockSpec((3, 1, tw * th, 1), lambda t, *_: (0, t, 0, 0),
-                         memory_space=pltpu.VMEM),               # gC
-            pl.BlockSpec((1, 1, tw * th, 1), lambda t, *_: (0, t, 0, 0),
-                         memory_space=pltpu.VMEM),               # glogT
-            pl.BlockSpec((1, 1, tw * th, 1), lambda t, *_: (0, t, 0, 0),
-                         memory_space=pltpu.VMEM),               # logT
-        ],
-        out_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),                   # grads
-            pl.BlockSpec((1, 1), lambda t, *_: (0, 0),
-                         memory_space=pltpu.VMEM),               # dummy
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((NBUF, BWD_FEAT_ROWS, chunk), jnp.int32),
-            pltpu.SemaphoreType.DMA((NBUF,)),
-            pltpu.VMEM((NWBUF, GRAD_ROWS, chunk), jnp.float32),
-            pltpu.SemaphoreType.DMA((NWBUF,)),
-        ])
-
-    # The gaussian id rides the feature table (row 8): bins.ranks IS the
-    # binning sort's payload — no gather builds this row — and the
-    # kernel emits it per pair, replacing the scatter stage's 1-row
-    # K-gather through bins.ranks (10 ns/index floor in every XLA
-    # lowering; 25.6 ms at 1M@1080p — scatterprobe + variant probe) with
-    # feature-DMA bandwidth the window fetch already pays.  Rows pad to
-    # 16 for Mosaic's 8-aligned DMA sublane rule.
-    kpf = bins.features.shape[1]
-    gid_row = jnp.concatenate(
-        [bins.ranks,
-         jnp.zeros((kpf - bins.ranks.shape[0],), jnp.int32)])[None, :]
-    feats16 = jnp.concatenate(
-        [bins.features, gid_row,
-         jnp.zeros((BWD_FEAT_ROWS - FEATURE_DIM - 1, kpf), jnp.int32)])
-
-    grads, _ = pl.pallas_call(
-        kernel, grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((GRAD_ROWS, kp2), jnp.float32),
-                   jax.ShapeDtypeStruct((1, 1), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )(bins.tile_start, bins.tile_end, pad_base[:-1],
-      jnp.minimum(cut.astype(jnp.int32), nch_t),
-      feats16, g_tiles, glt_tiles, lt_tiles)
-
-    return grads, pad_base, base_t
+    kcap = bins.features.shape[1]
+    return pl.pallas_call(
+        kernel, grid=(ntx * nty,),
+        out_shape=jax.ShapeDtypeStruct((GRAD_ROWS, kcap), jnp.float32),
+        input_output_aliases={6: 0},
+        name="splat_composite_bwd",
+        **kernel_route(K._num_warps(config)),
+    )(bins.tile_start, cut, bins.features, g_c, g_lt, lt_pad,
+      jnp.zeros((GRAD_ROWS, kcap), jnp.float32))
 
 
-def _scatter_pair_grads_xla(grads, pad_base, base_t, bins, n, chunk):
-    """(9, KP2) window-padded pair grads -> (9, N) per-gaussian grads via
-    an XLA scatter-add.  The fallback path for n >= 2^24 (where the
-    kernel's f32 gaussian-id row would lose integer exactness; it
-    reconstructs ids from pad_base/base_t + bins.ranks itself, so it
-    never reads the GRAD_KG row); on the
-    measured 1M@1080p operating point it costs ~480 ms/step — the
-    searchsorted padded-slot -> tile map alone is 294 ms and the
-    unsorted scatter-add runs at ~87 ns/index vs the ~5 ns gather floor
-    — which is why the sorted segment-sum path below is the default."""
-    kp2 = grads.shape[1]
-    k_cap = bins.ranks.shape[0]
-    p_ids = jnp.arange(kp2, dtype=jnp.int32)
-    # tile of each padded slot; slots past pad_base[-1] map to the last
-    # tile and are dropped by the range test below
-    t_of = jnp.searchsorted(pad_base, p_ids, side="right").astype(
-        jnp.int32) - 1
-    t_of = jnp.clip(t_of, 0, bins.tile_start.shape[0] - 1)
-    k_global = base_t[t_of] + (p_ids - pad_base[t_of])
-    valid = ((p_ids < pad_base[-1])
-             & (k_global >= bins.tile_start[t_of])
-             & (k_global < bins.tile_end[t_of]))
-    gidx = jnp.take(bins.ranks, jnp.clip(k_global, 0, k_cap - 1))
-    gidx = jnp.where(valid, gidx, n)           # n -> dropped
-    sem_rows = grads[:GRAD_SEM]
-    out = jnp.zeros((GRAD_SEM, n + 1), jnp.float32)
-    out = out.at[:, gidx].add(jnp.where(valid[None, :], sem_rows, 0.0),
+def _pair_gaussian_ids(bins, n):
+    """Each sorted slot's gaussian index, ``n`` for slots holding no pair
+    (real pairs fill [0, tile_end[-1]) — fakes and unused capacity sort
+    past the last tile)."""
+    k_ids = jnp.arange(bins.ranks.shape[0], dtype=jnp.int32)
+    valid = k_ids < bins.tile_end[-1]
+    return jnp.where(valid, bins.ranks, n), valid
+
+
+def _scatter_pair_grads_xla(grads, bins, n):
+    """(GRAD_ROWS, K) pair grads -> (GRAD_ROWS, N) per-gaussian grads via
+    a plain XLA scatter-add: the reference the sorted path is tested
+    against."""
+    gidx, valid = _pair_gaussian_ids(bins, n)
+    out = jnp.zeros((GRAD_ROWS, n + 1), jnp.float32)
+    out = out.at[:, gidx].add(jnp.where(valid[None, :], grads, 0.0),
                               mode="drop")
     return out[:, :n]
 
@@ -859,71 +292,51 @@ def _segment_offsets(proj, k_cap, tiles_x, tiles_y, config):
                             jnp.cumsum(retained).astype(jnp.int32)])
 
 
-def _boundary_take(rows, idx):
-    """Gather (R, K) rows at (M,) indices in ceil(R/8)-row groups —
-    gather cost cliffs ~4.4x above 8 rows (CLAUDE.md rule 9; measured
-    here: 8 rows 16.3 ms, 9 rows 71.6 ms at K=2.5M)."""
-    r = rows.shape[0]
-    parts = [jnp.take(rows[i:i + 8], idx, axis=1) for i in range(0, r, 8)]
-    return jnp.concatenate(parts, axis=0) if len(parts) > 1 else parts[0]
+def _scatter_pair_grads(grads, bins, proj, n, config):
+    """(GRAD_ROWS, K) pair grads -> (GRAD_ROWS, N) per-gaussian grads, as
+    a sort + gather + compensated segment cumsum — no K-scale scatter.
 
-
-def _scatter_pair_grads(grads, pad_base, base_t, bins, proj, n, config):
-    """(GRAD_ROWS, KP2) window-padded pair grads -> (9, N) per-gaussian
-    grads, as a sort + gather + compensated segment cumsum — no K-scale
-    scatter anywhere.
-
-    The XLA scatter-add formulation costs ~480 ms at 1M@1080p (87
-    ns/index serialization + a 294 ms host-side slot map); this path
-    runs the same reduction at gather/sort speeds (~70 ms measured):
-
-    1. each slot's GAUSSIAN ID comes from the kernel itself (GRAD_KG
-       row — exact f32 integers for N < 2^24; the id rides the feature
-       table as row 8, which bins.ranks provides gather-free), so no
-       K-scale table lookup happens here at all (the former 1-row take
-       through bins.ranks ran at a ~10 ns/index floor — 25.6 ms at
-       1M@1080p — in every XLA lowering tried);
-    2. ONE unstable sort by gaussian id; the 9th gradient row rides as a
-       sort payload (+1.4 ms) so the value gather stays at 8 rows
-       (9-row gathers cliff 4.4x);
+    1. each slot's gaussian id is ``bins.ranks`` (the binning sort's own
+       payload), ``n`` for slots holding no pair;
+    2. ONE unstable sort by gaussian id;
     3. per-gaussian sums = differences of the sorted rows' running
        cumsum at segment boundaries known EXACTLY from the binning's
        own count arithmetic (_segment_offsets — no searchsorted);
     4. the cumsum is COMPENSATED (a second cumsum of the per-element
        rounding residuals): a plain f32 prefix at K=2.5M leaves
        ~4e-3 worst-case relative error on short segments riding a large
-       running prefix; the residual pass restores ~1e-7 for one extra
-       cumsum + boundary take (~13 ms).
+       running prefix; the residual pass restores ~1e-7.
     """
-    kp2 = grads.shape[1]
     k_cap = bins.ranks.shape[0]
-    p_ids = jnp.arange(kp2, dtype=jnp.int32)
-    kg = grads[GRAD_KG]
-    # slots past pad_base[-1] were never written (uninitialized HBM):
-    # mask by the slot bound first, THEN trust the kernel's -1 flags
-    valid = (p_ids < pad_base[-1]) & (kg >= 0.0)
-    gidx = jnp.where(valid, kg.astype(jnp.int32), n)
-    row8 = jnp.where(valid, grads[GRAD_SEM - 1], 0.0)
-    # unstable: segment sums are order-independent within a segment, and
-    # the unstable network is the cheaper one (binning.py's sort agrees)
-    sg, order, row8_s = jax.lax.sort((gidx, p_ids, row8), num_keys=1,
-                                     is_stable=False)
-    del sg
-    sv8 = jnp.take(jnp.where(valid[None, :], grads[:GRAD_SEM - 1], 0.0),
-                   order, axis=1)
-    sv = jnp.concatenate([sv8, row8_s[None, :]], axis=0)   # (9, KP2)
+    gidx, valid = _pair_gaussian_ids(bins, n)
+    # unstable: segment sums are order-independent within a segment
+    _, order = jax.lax.sort(
+        (gidx, jnp.arange(k_cap, dtype=jnp.int32)), num_keys=1,
+        is_stable=False)
+    sv = jnp.take(jnp.where(valid[None, :], grads, 0.0), order, axis=1)
     c0 = jnp.cumsum(sv, axis=1)
     resid = sv - jnp.diff(c0, axis=1,
-                          prepend=jnp.zeros((GRAD_SEM, 1), jnp.float32))
+                          prepend=jnp.zeros((GRAD_ROWS, 1), jnp.float32))
     c1 = jnp.cumsum(resid, axis=1)
-    zero = jnp.zeros((2 * GRAD_SEM, 1), jnp.float32)
+    zero = jnp.zeros((2 * GRAD_ROWS, 1), jnp.float32)
     cpad = jnp.concatenate([zero, jnp.concatenate([c0, c1], axis=0)],
-                           axis=1)                          # (18, KP2+1)
+                           axis=1)                          # (18, K+1)
     off = _segment_offsets(proj, k_cap, bins.tiles_x, bins.tiles_y,
                            config)                          # (N+1,)
-    q = _boundary_take(cpad, off)                           # (18, N+1)
+    q = jnp.take(cpad, off, axis=1)                         # (18, N+1)
     seg = q[:, 1:] - q[:, :-1]
-    return seg[:GRAD_SEM] + seg[GRAD_SEM:]
+    return seg[:GRAD_ROWS] + seg[GRAD_ROWS:]
+
+
+def _proj_arrays(scene, camera, config):
+    """The differentiable projected quantities, plus the full projection
+    record as a non-differentiated auxiliary (``jax.vjp(..., has_aux)``):
+    the backward needs proj.radius_px/visible for the segment offsets and
+    proj.color/opacity for the straight-through masks, and threading them
+    through the SAME trace guarantees one projection pass per backward
+    instead of relying on XLA CSE to merge a duplicate."""
+    proj = project_gaussians(scene, camera, config)
+    return (proj.center_px, proj.conic, proj.color, proj.opacity), proj
 
 
 def _rebuild_proj(fields, aux):
@@ -938,62 +351,49 @@ def _rebuild_proj(fields, aux):
                               opacity=opacity, visible=vis_f > 0.5)
 
 
-def _core_proj_impl(fields, aux, h, w, config, interpret):
+def _core_proj_impl(fields, aux, h, w, config):
     proj = _rebuild_proj(fields, aux)
-    bins = build_tile_bins(proj, h, w, config, interpret=interpret)
-    c_raw, lt, cut = _fwd_raster(bins, h, w, config, interpret)
-    return c_raw, lt, bins, cut
+    bins = build_tile_bins(proj, h, w, config)
+    planes, cut = _fwd_raster(bins, config)
+    return planes[:h, :w, :3], planes[:h, :w, 3], bins, planes[..., 3], cut
 
 
-@partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4, 5))
-def _core_proj(fields, aux, h, w, config, interpret):
-    """The custom-VJP boundary since round 5: (projected quantities) ->
-    (raw C, logT).
+@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4))
+def _core_proj(fields, aux, h, w, config):
+    """The custom-VJP boundary: (projected quantities) -> (raw C, logT).
 
-    Moving the boundary from (scene, camera) to the PROJECTED per-
-    gaussian quantities buys two things at once: (a) the backward no
-    longer re-runs the projection (jax's own autodiff of
-    project_gaussians supplies the pullback, one pass instead of the
-    old fwd-in-bwd re-projection), and (b) tensor-parallel TRAINING
-    composes naturally — a sharded caller all_gathers each chip's
-    projected fields over the gaussian axis and calls this; the
-    all_gather's transpose (psum-scatter) routes the pixel-side
-    cotangents back to the owning shard (parallel/sharding.py).
+    Placing the boundary at the PROJECTED per-gaussian quantities buys
+    two things at once: (a) the backward never re-runs the projection
+    (jax's own autodiff of project_gaussians supplies the pullback), and
+    (b) tensor-parallel TRAINING composes naturally — a sharded caller
+    all_gathers each device's projected fields over the gaussian axis
+    and calls this; the all_gather's transpose (psum-scatter) routes the
+    pixel-side cotangents back to the owning shard
+    (parallel/sharding.py).
 
     ``fields`` = (center_px, conic, color, opacity) — differentiable.
     ``aux`` = (depth, radius_px, visible-as-f32) — zero cotangent (the
     binning machinery: orderings, spans, indicators).
     """
-    c_raw, lt, _, _ = _core_proj_impl(fields, aux, h, w, config,
-                                      interpret)
+    c_raw, lt, _, _, _ = _core_proj_impl(fields, aux, h, w, config)
     return c_raw, lt
 
 
-def _core_proj_fwd(fields, aux, h, w, config, interpret):
-    c_raw, lt, bins, cut = _core_proj_impl(fields, aux, h, w, config,
-                                           interpret)
-    return (c_raw, lt), (fields, aux, bins, lt, cut)
+def _core_proj_fwd(fields, aux, h, w, config):
+    c_raw, lt, bins, lt_pad, cut = _core_proj_impl(fields, aux, h, w,
+                                                   config)
+    return (c_raw, lt), (fields, aux, bins, lt_pad, cut)
 
 
-def _core_proj_bwd(h, w, config, interpret, res, cts):
-    fields, aux, bins, lt, cut = res
+def _core_proj_bwd(h, w, config, res, cts):
+    fields, aux, bins, lt_pad, cut = res
     center, conic, color, opacity = fields
     g_c, g_lt = cts
     n = center.shape[0]
-    chunk = config.chunk
 
-    grads, pad_base, base_t = _bwd_raster(
-        bins, g_c, g_lt, lt, cut, h, w, config, interpret)
-    if n >= (1 << 24):
-        # the f32 gaussian-id row loses integer exactness at N = 2^24
-        # (the sorted path's only precision bound — k_cap no longer
-        # matters since the id rides the feature table, so 6M-gaussian
-        # scenes at k_cap > 16.7M pairs stay on the fast path)
-        per_g = _scatter_pair_grads_xla(grads, pad_base, base_t, bins, n,
-                                        chunk)
-    else:
-        per_g = _scatter_pair_grads(grads, pad_base, base_t, bins,
-                                    _rebuild_proj(fields, aux), n, config)
+    grads = _bwd_raster(bins, g_c, g_lt, lt_pad, cut, config)
+    per_g = _scatter_pair_grads(grads, bins, _rebuild_proj(fields, aux), n,
+                                config)
 
     # per-pair rows were computed against the PACKED values: rows 2-4 are
     # the prescaled conic (-a/2, -b, -c/2); undo the prescale here
@@ -1019,8 +419,7 @@ def _core_proj_bwd(h, w, config, interpret, res, cts):
 _core_proj.defvjp(_core_proj_fwd, _core_proj_bwd)
 
 
-def core_from_proj(proj, h: int, w: int, config: RenderConfig,
-                   interpret: bool):
+def core_from_proj(proj, h: int, w: int, config: RenderConfig):
     """Differentiable (ProjectedGaussians -> raw C, logT).
 
     The entry point for sharded callers that assemble a full projection
@@ -1031,29 +430,26 @@ def core_from_proj(proj, h: int, w: int, config: RenderConfig,
     aux = (jax.lax.stop_gradient(proj.depth),
            jax.lax.stop_gradient(proj.radius_px),
            jax.lax.stop_gradient(proj.visible.astype(jnp.float32)))
-    return _core_proj(fields, aux, h, w, config, interpret)
+    return _core_proj(fields, aux, h, w, config)
 
 
-def _core(scene, camera, config, interpret):
+def _core(scene, camera, config):
     """(scene, camera) -> (raw C, logT), differentiable: plain-JAX
     projection (autodiffed) composed with the custom-VJP raster core."""
     proj = project_gaussians(scene, camera, config)
-    return core_from_proj(proj, camera.h, camera.w, config, interpret)
+    return core_from_proj(proj, camera.h, camera.w, config)
 
 
 def render_tiled_diff(scene, camera: Camera,
-                      config: RenderConfig | None = None,
-                      *, interpret: bool | None = None) -> jax.Array:
+                      config: RenderConfig | None = None) -> jax.Array:
     """Differentiable tiled render: same image semantics as render_tiled
-    (light path, no saturation early-exit — exact, marginally slower on
-    saturating scenes), with a custom VJP through the Pallas kernels.
+    (its exit replaced by the exact saturation cut unless
+    config.train_sat_exit), with a custom VJP through the Pallas kernels.
 
     ``jax.grad`` flows to every scene parameter and to the camera pose.
     """
     config = config or RenderConfig()
     _check_config(config)
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
     ss = config.supersample
     if ss > 1:
         camera = camera.scaled(ss)
@@ -1065,7 +461,7 @@ def render_tiled_diff(scene, camera: Camera,
             jnp.asarray(bgc, jnp.float32),
             (camera.h // ss, camera.w // ss, len(bgc))).astype(jnp.float32)
 
-    c_raw, lt = _core(scene, camera, config, interpret)
+    c_raw, lt = _core(scene, camera, config)
     t_n = jnp.exp(lt)
     bg = jnp.asarray(config.background, jnp.float32)
     img = jnp.clip(c_raw + t_n[..., None] * bg, 0.0, 1.0)

@@ -1,51 +1,35 @@
-"""Pallas TPU kernel: per-tile front-to-back alpha compositing.
+"""Per-tile front-to-back alpha compositing: the Pallas kernel and its
+plain reference.
 
-Each grid program owns one tile_px x tile_px pixel tile and walks its
-pre-sorted gaussian range front-to-back in lane-aligned windows:
+The kernel follows the INRIA 3DGS rasterizer's layout on the GPU: one
+program per tile, the tile's pixels spread across the block as a
+(tile_h, tile_w) array, and the tile's sorted pair range
+[tile_start, tile_end) walked one pair at a time.  Each step reads the
+pair's packed feature column (eight int32 scalars, broadcast to every
+pixel), evaluates its conic at every pixel and composites it under the
+per-pixel transmittance T.  Every ``chunk`` pairs the block checks
+saturation and stops once every pixel of the tile is below the exit
+threshold.  The tile is written straight into the padded (H, W, C) image.
 
-  HBM --async DMA--> VMEM window (8, chunk) of packed feature-major data
-  alpha        : (P, chunk) vectorized conic evaluation (VPU), pixels on the
-                 sublane axis, gaussians on the lane axis — so per-gaussian
-                 rows (1, chunk) and per-pixel columns (P, 1) broadcast with
-                 no transposes/relayouts
-  transmittance: log-depth exclusive cumulative product along lanes
-  contribution : masked weighted reductions along lanes
-  early exit   : whole tile for short ranges; per PIXEL GROUP for long
-                 ranges (see below)
+One kernel body serves both callers, with a static ``train`` switch:
 
-Saturation-exit granularity is load-adaptive.  Short pair ranges walk the
-tile as ONE (P, chunk) body with a whole-tile exit — zero bookkeeping
-overhead, the right trade when the walk is a handful of windows.  Ranges
-longer than ``subtile_heavy_pairs`` additionally get PHASE COMPACTION
-(config.subtile_exit): the tile's pixels are viewed as 8 x 16 blocks of
-128 rows; the walk starts at full width while per-block saturation flags
-refresh every SAT_CHECK_EVERY windows, and once <= COMPACT_GROUPS blocks
-remain unsaturated their rows (coords, color, transmittance) are copied
-into a contiguous compact buffer and the REST of the range walks at
-compact width — then the compact rows are written back once.  This is
-the trained-scene silhouette-tile structure: opaque surface saturates
-its blocks after tens of pairs while open background never saturates, so
-one unsaturated pixel used to keep all 1024 burning VPU for tens of
-thousands of pairs.  All control flow sits at the single phase boundary:
-per-window per-group predication was measured at ~0.3 us/branch plus
-~0.26 us fixed per 128-row body on v5e — more than the work it skips —
-so the design moves pixels once instead of branching every window.
+* render (``train=False``): the final colour clip(C + T * background),
+  plus the coverage 1 - T when ``config.alpha_channel``; exit once every
+  pixel has T < alpha_min;
+* training forward (``train=True``, render/diff.py): the raw colour C,
+  log T (the sum of log1p(-alpha), the backward's anchor) and the number
+  of pairs each tile walked.  The exit is either exact (every pixel's log
+  T below diff.SAT_CUT_LOG and T exactly 0, after which every
+  contribution and gradient is an IEEE zero) or, with
+  ``config.train_sat_exit``, the render threshold.
 
-Alignment: Mosaic requires DMA windows 128-aligned on the lane axis, but a
-tile's range [s, e) starts anywhere.  Window j covers lanes
-[align128(s) + j*chunk, +chunk); pairs outside [s, e) are masked by their
-global index (they belong to neighboring tiles).
+:func:`composite_reference` is the same computation in plain
+``jax.numpy``/``lax`` over the same TileBins: every tile padded to the
+longest range in the frame and walked in batches of ``chunk`` pairs with
+the same exit rule.  Tests and chip_smoke.py compare the kernel with it.
 
 This replaces the reference's per-pixel fragment/blend callbacks
-(src/pipelines.rs:127-168) — there, one scalar callback per covered pixel
-per gaussian; here every (pixel, gaussian) pair in a window is one lane of
-a dense VPU op, with no data-dependent control flow below the group level.
-
-DMA pipelining: window fetches run NBUF-buffered with a 2-window lookahead
-issued BEFORE the current window's compute, so HBM latency hides behind
-two windows of VPU work.  On saturation early-exit, in-flight fetches are
-drained after the loop so no semaphore is left signaled across grid steps;
-the one speculative fetch a saturated tile wastes is free bandwidth.
+(src/pipelines.rs:127-168).
 """
 
 from __future__ import annotations
@@ -56,510 +40,310 @@ import math
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from splat_tpu.config import RenderConfig
 from splat_tpu.render.binning import FEATURE_DIM, _R15_MAX, TileBins
+from splat_tpu.render.route import kernel_route
 
-# Feature-window DMA buffers: lookahead 2 needs >= 3 live slots (j, j+1,
-# j+2); 4 keeps rem() on a power of two.
-NBUF = 4
+_INV_U16 = 1.0 / 65535.0
 
-# Pixel-group block shape for the per-group saturation exit: 8 sublanes x
-# 16 pixels = 128 pixels = one minimal f32 slice of the (P, ...)
-# accumulators.  8x16 keeps groups 2D-compact so an occlusion edge of any
-# orientation deactivates most of them (a scanline group would only help
-# horizontal edges).
-GROUP_W = 16
-GROUP_H = 8
-
-# Windows between group-flag re-evaluations on the heavy path: each check
-# is a (pg, 1) vector max funneled to a scalar SMEM flag — cheap VPU work
-# but a scalar-core sync — so it is amortized over several windows.  The
-# cost is up to SAT_CHECK_EVERY - 1 windows of extra work per group after
-# it saturates: noise against the hundreds-of-windows walks that take
-# this path.
-SAT_CHECK_EVERY = 8
-
-# Pixel groups carried into the compact phase of a heavy tile's walk
-# (COMPACT_GROUPS * 128 = 512 compact rows — a half-width tail walk).
-# Measured on the surface scene at 1M@1080p: a quarter-width buffer (2
-# groups) rarely engaged — silhouette tiles commonly hold 3-6 live
-# groups deep into their range — while half-width qualifies most of the
-# heavy tail.
-COMPACT_GROUPS = 4
+# Largest alpha whose log1p is taken when alpha_clamp allows alpha ~ 1.
+_ALPHA_LOG_MAX = 0.999999
 
 
-def group_grid(tile_w: int, tile_h: int, subtile: bool):
-    """(GY, GX, BH, BW): the tile's pixel-group decomposition.
+def decode_features(f, skip_bbox: bool) -> dict:
+    """Packed feature rows (binning.py layout) -> float fields.
 
-    subtile=False (or a tile not divisible into 8x16 blocks) degrades to
-    one whole-tile group — exactly the pre-group kernel behavior.
+    ``f`` is a sequence of the eight int32 rows, each of any shape (the
+    kernel passes scalars, the reference (T, chunk) arrays).  Rows 0-4 are
+    f32 bits of [cx, cy, -a/2, -b, -c/2]; rows 5/6 are u16 pairs of (r, g)
+    and (b, opacity); row 7 packs 15-bit (rx, ry) in 1/8-px units.  A
+    saturated radius field (_R15_MAX) decodes to an infinite squared
+    radius, so the bbox test always passes.
     """
-    if subtile and tile_w % GROUP_W == 0 and tile_h % GROUP_H == 0 \
-            and tile_w * tile_h > GROUP_W * GROUP_H:
-        return tile_h // GROUP_H, tile_w // GROUP_W, GROUP_H, GROUP_W
-    return 1, 1, tile_h, tile_w
+    frow = lambda i: jax.lax.bitcast_convert_type(f[i], jnp.float32)
+    lo16 = lambda i: (f[i] & 0xFFFF).astype(jnp.float32) * _INV_U16
+    hi16 = lambda i: ((f[i] >> 16) & 0xFFFF).astype(jnp.float32) * _INV_U16
+    out = dict(cx=frow(0), cy=frow(1), a2=frow(2), b2=frow(3), c2=frow(4),
+               r=lo16(5), g=hi16(5), b=lo16(6), op=hi16(6))
+    if not skip_bbox:
+        rxq = f[7] & 0x7FFF
+        ryq = (f[7] >> 15) & 0x7FFF
+        rx = rxq.astype(jnp.float32) * 0.125
+        ry = ryq.astype(jnp.float32) * 0.125
+        out["rx2"] = jnp.where(rxq == _R15_MAX, jnp.inf, rx * rx)
+        out["ry2"] = jnp.where(ryq == _R15_MAX, jnp.inf, ry * ry)
+    return out
 
 
-def _cumprod_excl_lanes(x: jax.Array) -> tuple[jax.Array, jax.Array]:
-    """(P, C) -> (exclusive cumprod along axis 1, total product (P, 1)).
+def pair_alpha(g, op, px, py, alpha_clamp: float, alpha_min: float,
+               skip_bbox: bool):
+    """One pair's alpha at pixels (px, py), exactly as the kernels
+    evaluate it.  ``g`` holds decoded fields broadcastable against the
+    pixel arrays; ``op`` is the opacity, already zero for masked pairs.
 
-    Log-depth prefix product; C must be a power of two.
+    Returns (alpha, expp, keep, unclamped, dx, dy): the kept, clamped
+    alpha plus the pieces the backward chains through.
     """
-    c = x.shape[1]
-    assert (c & (c - 1)) == 0, f"chunk {c} must be a power of two"
-    ones = jnp.ones_like(x)
-    incl = x
-    shift = 1
-    while shift < c:
-        incl = incl * jnp.concatenate(
-            [ones[:, :shift], incl[:, :-shift]], axis=1)
-        shift *= 2
-    excl = jnp.concatenate([ones[:, :1], incl[:, :-1]], axis=1)
-    return excl, incl[:, c - 1:c]
+    dx = px - g["cx"]
+    dy = g["cy"] - py                       # local +y up on screen
+    dx2 = dx * dx
+    dy2 = dy * dy
+    power = g["a2"] * dx2 + g["c2"] * dy2 + g["b2"] * (dx * dy)
+    # No power <= 0 test: visibility gating requires det(cov2d) > 0
+    # (projection.py), so the conic is PSD and power <= 0 always holds.
+    expp = jnp.exp(power)
+    a_raw = op * expp
+    alpha = jnp.minimum(alpha_clamp, a_raw)
+    keep = alpha >= alpha_min
+    if not skip_bbox:
+        keep = keep & (dx2 <= g["rx2"]) & (dy2 <= g["ry2"])
+    # sigma_cutoff=inf + tight_radius: the stored bbox IS the alpha_min
+    # kill radius, so the alpha test subsumes the bbox compares
+    alpha = jnp.where(keep, alpha, 0.0)
+    return alpha, expp, keep, a_raw < alpha_clamp, dx, dy
 
 
-def _raster_kernel(
-    # scalar prefetch
-    start_ref, end_ref,
-    # inputs
-    feat_hbm,                       # (FEATURE_DIM, Kp) in HBM/ANY
-    # outputs
-    out_ref,                        # (3, 1, bs0, bs1) VMEM block
-    # scratch
-    feat_vmem, sem, img_ref, tr_ref, act_ref, cpx_ref, cpy_ref,
-    cimg_ref, ctr_ref, meta_ref,
-    *, chunk: int, tile_w: int, tile_h: int, tiles_x: int, bs0: int,
-    bs1: int, alpha_clamp: float, alpha_min: float,
-    bg: tuple[float, float, float], color_precision, gy_n: int, gx_n: int,
-    bh: int, bw: int, heavy_chunks: int, transmit_mxu: bool,
-    skip_bbox: bool, alpha_channel: bool,
-):
+def log_one_minus(alpha, alpha_clamp: float):
+    """log(1 - alpha), guarded where alpha_clamp lets alpha reach ~1."""
+    if alpha_clamp >= _ALPHA_LOG_MAX:
+        alpha = jnp.minimum(alpha, _ALPHA_LOG_MAX)
+    return jnp.log1p(-alpha)
+
+
+def _exit_now(tile_max, transmit, logt, *, train: bool, sat_exit: bool,
+              alpha_min: float, sat_cut_log: float):
+    """The tile-wide saturation test, shared by kernel and reference;
+    ``tile_max`` reduces a per-pixel array over the tile's pixels."""
+    t_max = tile_max(transmit)
+    if not train or sat_exit:
+        return t_max < alpha_min
+    return (tile_max(logt) < sat_cut_log) & (t_max == 0.0)
+
+
+def _composite_kernel(start_ref, end_ref, feat_ref, *out_refs,
+                      tile_w: int, tile_h: int, tiles_x: int, chunk: int,
+                      alpha_clamp: float, alpha_min: float,
+                      bg: tuple[float, float, float], skip_bbox: bool,
+                      alpha_channel: bool, train: bool, sat_exit: bool,
+                      sat_cut_log: float):
     t = pl.program_id(0)
     s = start_ref[t]
     e = end_ref[t]
-    base = (s // 128) * 128          # lane-aligned DMA base
-    nchunks = (e - base + chunk - 1) // chunk
-    p = bs0 * bs1                    # pixels per tile
-    ng = gy_n * gx_n                 # pixel groups
-    pg = p // ng                     # pixels per group
-    tile_y = t // tiles_x
-    tile_x = t % tiles_x
+    n_pairs = e - s
+    n_batches = (n_pairs + chunk - 1) // chunk
+    kmax = feat_ref.shape[1] - 1
+    y0 = (t // tiles_x) * tile_h
+    x0 = (t % tiles_x) * tile_w
+    shape = (tile_h, tile_w)
+    px = (x0 + jax.lax.broadcasted_iota(jnp.int32, shape, 1)).astype(
+        jnp.float32)
+    py = (y0 + jax.lax.broadcasted_iota(jnp.int32, shape, 0)).astype(
+        jnp.float32)
 
-    # Per-program state (scratch persists across grid steps — reinit).
-    img_ref[...] = jnp.zeros((p, 3), jnp.float32)
-    tr_ref[...] = jnp.ones((p, 1), jnp.float32)
+    def pair(k, state):
+        cr, cg, cb, tr, lt = state
+        kc = jnp.minimum(k, kmax)
+        g = decode_features([feat_ref[r, kc] for r in range(FEATURE_DIM)],
+                            skip_bbox)
+        op = jnp.where(k < e, g["op"], 0.0)
+        alpha, _, _, _, _, _ = pair_alpha(g, op, px, py, alpha_clamp,
+                                          alpha_min, skip_bbox)
+        wgt = alpha * tr
+        cr = cr + wgt * g["r"]
+        cg = cg + wgt * g["g"]
+        cb = cb + wgt * g["b"]
+        if train:
+            lt = lt + log_one_minus(alpha, alpha_clamp)
+        return cr, cg, cb, tr * (1.0 - alpha), lt
 
-    # Pixel coordinates of all P accumulator rows, computed ONCE per
-    # program as (P, 1) columns; window bodies slice per group.  Linear
-    # row index r = g * pg + q where group g = gy * gx_n + gx covers the
-    # bh x bw pixel block at (gy*bh, gx*bw) and q maps to
-    # (q // bw, q % bw); rasterize_tiles' untile inverts this mapping.
-    r_lin = jax.lax.broadcasted_iota(jnp.int32, (p, 1), 0)
-    g_of = r_lin // pg
-    q_of = r_lin % pg
-    pxf_all = (tile_x * tile_w + (g_of % gx_n) * bw
-               + q_of % bw).astype(jnp.float32)
-    pyf_all = (tile_y * tile_h + (g_of // gx_n) * bh
-               + q_of // bw).astype(jnp.float32)
+    def batch(carry):
+        b, _, state = carry
+        k0 = s + b * chunk
+        state = jax.lax.fori_loop(0, chunk,
+                                  lambda i, st: pair(k0 + i, st), state)
+        sat = _exit_now(jnp.max, state[3], state[4], train=train,
+                        sat_exit=sat_exit, alpha_min=alpha_min,
+                        sat_cut_log=sat_cut_log)
+        return b + 1, sat, state
 
-    if transmit_mxu:
-        # strictly-lower-triangular ones: contracting lane i of a window
-        # row with column j yields the EXCLUSIVE prefix sum over i < j
-        ti = jax.lax.broadcasted_iota(jnp.int32, (chunk, chunk), 0)
-        tj = jax.lax.broadcasted_iota(jnp.int32, (chunk, chunk), 1)
-        tri_excl = (ti < tj).astype(jnp.float32)
+    def cond(carry):
+        b, sat, _ = carry
+        return (b < n_batches) & jnp.logical_not(sat)
 
-    def dma(slot, j):
-        off = pl.multiple_of(base + j * chunk, 128)
-        return pltpu.make_async_copy(
-            feat_hbm.at[:, pl.ds(off, chunk)],
-            feat_vmem.at[slot],
-            sem.at[slot])
+    zeros = jnp.zeros(shape, jnp.float32)
+    init = (zeros, zeros, zeros, jnp.ones(shape, jnp.float32), zeros)
+    b_end, _, (cr, cg, cb, tr, lt) = jax.lax.while_loop(
+        cond, batch, (jnp.int32(0), jnp.bool_(False), init))
 
-    @pl.when(nchunks > 0)
-    def _():
-        dma(0, 0).start()
-
-    @pl.when(nchunks > 1)
-    def _():
-        dma(1, 1).start()
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, chunk), 1)
-
-    def decode(f):
-        """Packed feature rows (binning.py layout) -> per-window rows,
-        all (1, chunk) or (3, chunk): rows 0-4 are f32 bits of
-        [cx, cy, -a/2, -b, -c/2]; rows 5/6 are u16 pairs of (r, g) and
-        (b, opacity); row 7 is 15-bit (rx, ry) in 1/8-px units.  A
-        saturated radius field (_R15_MAX) means "covers everything": its
-        squared radius decodes to +inf so the bbox compare always passes.
-        The conic arrives prescaled and the bbox test uses squared radii,
-        shaving ~3 (P, chunk) VPU ops."""
-        frow = lambda i: jax.lax.bitcast_convert_type(
-            f[i:i + 1, :], jnp.float32)           # (1, chunk) f32 bits
-        lo16 = lambda i: (f[i:i + 1, :] & 0xFFFF).astype(jnp.float32)
-        hi16 = lambda i: ((f[i:i + 1, :] >> 16) & 0xFFFF).astype(
-            jnp.float32)
-        inv_u16 = 1.0 / 65535.0
-        colors = jnp.concatenate(
-            [lo16(5), hi16(5), lo16(6)]) * inv_u16            # (3, chunk)
-        w = dict(
-            cx=frow(0), cy=frow(1), a2=frow(2), b2=frow(3), c2=frow(4),
-            colors=colors,
-            op_raw=hi16(6) * inv_u16)
-        if not skip_bbox:     # sigma_cutoff=inf: alpha test subsumes bbox
-            rxq = f[7:8, :] & 0x7FFF
-            ryq = (f[7:8, :] >> 15) & 0x7FFF
-            rx = rxq.astype(jnp.float32) * 0.125
-            ry = ryq.astype(jnp.float32) * 0.125
-            w["rx2"] = jnp.where(rxq == _R15_MAX, jnp.inf, rx * rx)
-            w["ry2"] = jnp.where(ryq == _R15_MAX, jnp.inf, ry * ry)
-        return w
-
-    def composite_rows(w, op, img_t, tr_t, pxc, pyc, rows):
-        """One window's front-to-back compositing of ``rows`` accumulator
-        rows (img_t/tr_t refs, pxc/pyc pixel-coordinate columns); returns
-        the updated transmittance."""
-        dx = pxc - w["cx"]                        # (rows, chunk)
-        dy = w["cy"] - pyc                        # local +y up on screen
-        dx_2 = dx * dx
-        dy_2 = dy * dy
-        power = w["a2"] * dx_2 + w["c2"] * dy_2 + w["b2"] * (dx * dy)
-        alpha = jnp.minimum(alpha_clamp, op * jnp.exp(power))
-        # No power<=0 test: visibility gating requires det(cov2d)>0
-        # (projection.py), so the conic is PSD and power<=0 always holds;
-        # the reference's check (src/pipelines.rs:135) is defensive only.
-        if skip_bbox:
-            # sigma_cutoff=inf + tight_radius: the stored bbox IS the
-            # (ceil-quantized, hence >=) alpha_min kill radius, so
-            # alpha >= alpha_min implies |dx| <= rx and |dy| <= ry
-            # (marginal bound, ops/projection.py) — the two compares and
-            # two ands are statically dropped.
-            keep = alpha >= alpha_min
-        else:
-            keep = ((alpha >= alpha_min) & (dx_2 <= w["rx2"])
-                    & (dy_2 <= w["ry2"]))
-        alpha = jnp.where(keep, alpha, 0.0)
-
-        if transmit_mxu:
-            # Transmittance prefix on the MXU: log-space cumsum via ONE
-            # strictly-lower-triangular-ones contraction.  x is Dekker-
-            # split with a bit mask (NEVER x - f32(bf16(x)): XLA's
-            # excess-precision pass elides the round-trip) so two DEFAULT
-            # bf16 passes are f32-exact: the triangular mask is 0/1
-            # (exact in bf16) and each split part fits a bf16 mantissa.
-            # Replaces the 7-level shifted-multiply prefix (~14 VPU
-            # passes) with ~4 VPU passes + MXU work that overlaps.
-            # alpha <= alpha_clamp (0.99) already, so log1p's argument is
-            # bounded away from -1 with no extra (rows, chunk) clamp pass;
-            # only guard when a caller configures alpha_clamp ~ 1.
-            if alpha_clamp < 0.999999:
-                x = jnp.log1p(-alpha)
-            else:
-                x = jnp.log1p(-jnp.minimum(alpha, 0.999999))
-            xb = jax.lax.bitcast_convert_type(
-                jax.lax.bitcast_convert_type(x, jnp.int32)
-                & ~jnp.int32(0xFFFF),
-                jnp.float32)
-            xl = x - xb
-            dot = lambda a_: jax.lax.dot_general(
-                a_, tri_excl, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)
-            s_log = dot(xb) + dot(xl)             # (rows, chunk) excl sum
-            t_before = jnp.exp(s_log)
-            t_chunk = jnp.exp(s_log[:, -1:] + x[:, -1:])
-        else:
-            t_before, t_chunk = _cumprod_excl_lanes(1.0 - alpha)
-        transmit = tr_t[0:rows, :]
-        weight = alpha * t_before                 # (rows, chunk)
-        # Channel accumulation on the MXU: contract (rows, chunk) with
-        # the (3, chunk) color rows on their lane dims (no transpose) —
-        # frees ~6 VPU passes per window and overlaps with the VPU's
-        # next ops.  Precision DEFAULT (one bf16 pass, f32 accumulation)
-        # is the measured sweet spot — 70 dB vs the oracle on-chip
-        # (HIGHEST: 79.5 dB; threshold 45); exact_color_accum restores
-        # HIGHEST at ~3.8 ms/frame at 1M@1080p.  The carried
-        # transmittance multiplies the contracted (rows, 3) result —
-        # one tiny op instead of a full (rows, chunk) pass on the
-        # weights.  (An all-VPU masked-reduction variant existed for the
-        # rejected per-group walk — per-group MXU launches serialized
-        # against the vector pipeline — but the shipped phase-compaction
-        # design composites full-width everywhere; see the ledger.)
-        contrib = jax.lax.dot_general(
-            weight, w["colors"], (((1,), (1,)), ((), ())),
-            precision=color_precision,
-            preferred_element_type=jnp.float32)   # (rows, 3)
-        img_t[0:rows, :] = img_t[0:rows, :] + transmit * contrib
-        transmit = transmit * t_chunk
-        tr_t[0:rows, :] = transmit
-        return transmit
-
-    def window_rows(j):
-        """DMA bookkeeping + decode for window j; returns the decoded
-        rows with pair-range validity folded into the opacity row: lanes
-        outside [s, e) get op=0, failing the alpha cutoff with no
-        (rows, chunk)-wide range compares."""
-        slot = jax.lax.rem(j, NBUF)
-        dma(slot, j).wait()
-
-        # Issue the fetch two windows ahead BEFORE this window's compute,
-        # so its HBM latency hides behind two windows of VPU work.
-        @pl.when(j + 2 < nchunks)
-        def _():
-            dma(jax.lax.rem(j + 2, NBUF), j + 2).start()
-
-        w = decode(feat_vmem[slot])
-        k_global = base + j * chunk + lane        # (1, chunk)
-        op = jnp.where((k_global >= s) & (k_global < e), w["op_raw"], 0.0)
-        return w, op
-
-    def drain(j_end):
-        """Drain in-flight fetches on early exit (body j issues j + 2;
-        exiting after body j_end - 1 leaves j_end and j_end + 1
-        outstanding when they exist)."""
-        @pl.when(j_end < nchunks)
-        def _():
-            dma(jax.lax.rem(j_end, NBUF), j_end).wait()
-
-        @pl.when(j_end + 1 < nchunks)
-        def _():
-            dma(jax.lax.rem(j_end + 1, NBUF), j_end + 1).wait()
-
-    # ---- light path: whole-tile body, whole-tile saturation exit -------
-    def light_loop():
-        def body(carry):
-            j, _ = carry
-            w, op = window_rows(j)
-            transmit = composite_rows(w, op, img_ref, tr_ref,
-                                      pxf_all, pyf_all, p)
-            return j + 1, jnp.max(transmit) < alpha_min
-
-        def cond(carry):
-            j, saturated = carry
-            return (j < nchunks) & jnp.logical_not(saturated)
-
-        j_end, _ = jax.lax.while_loop(
-            cond, body, (jnp.int32(0), jnp.bool_(False)))
-        drain(j_end)
-
-    # ---- heavy path: whole-tile walk + PHASE COMPACTION ----------------
-    # Two sequential loops, all control flow at the single phase boundary
-    # (per-window per-group predication measured ~0.3 us/branch plus
-    # ~0.26 us fixed per 128-row body on v5e — more than the work it
-    # saves).  Phase 1 walks the FULL tile exactly like the light path,
-    # additionally refreshing per-group saturation flags every
-    # SAT_CHECK_EVERY windows; once <= COMPACT_GROUPS groups remain
-    # unsaturated, their rows (pixel coords, color, transmittance) are
-    # copied into a contiguous compact buffer and phase 2 walks the rest
-    # of the range at compact width with zero bookkeeping.  Saturated
-    # rows' state stays valid in the full accumulators; the compact rows
-    # are written back once at the end.
-    def heavy_loop():
-        for g in range(ng):
-            act_ref[g] = 1
-
-        def body_full(carry):
-            j, nact = carry
-            w, op = window_rows(j)
-            composite_rows(w, op, img_ref, tr_ref, pxf_all, pyf_all, p)
-            check = jax.lax.rem(j, SAT_CHECK_EVERY) == SAT_CHECK_EVERY - 1
-
-            @pl.when(check)
-            def _():
-                for g in range(ng):
-                    act_ref[g] = jnp.where(
-                        jnp.max(tr_ref[g * pg:(g + 1) * pg, :])
-                        < alpha_min, 0, 1).astype(jnp.int32)
-
-            nact2 = act_ref[0]
-            for g in range(1, ng):
-                nact2 = nact2 + act_ref[g]
-            return j + 1, jnp.where(check, nact2, nact)
-
-        def cond_full(carry):
-            j, nact = carry
-            return (j < nchunks) & (nact > COMPACT_GROUPS)
-
-        j1, nact1 = jax.lax.while_loop(cond_full, body_full,
-                                       (jnp.int32(0), jnp.int32(ng)))
-
-        do_compact = (j1 < nchunks) & (nact1 > 0)
-
-        @pl.when(do_compact)
-        def _():
-            # Gather the still-active groups' state into the compact
-            # buffers.  meta_ref: [count, group_id_0, group_id_1].
-            meta_ref[0] = 0
-            for g in range(ng):
-                @pl.when(act_ref[g] == 1)
-                def _(g=g):
-                    k = meta_ref[0]
-
-                    @pl.when(k < COMPACT_GROUPS)
-                    def _():
-                        meta_ref[1 + k] = g
-                    meta_ref[0] = k + 1
-            for k in range(COMPACT_GROUPS):
-                lo, hi = k * pg, (k + 1) * pg
-
-                @pl.when(k < meta_ref[0])
-                def _(k=k, lo=lo, hi=hi):
-                    g = meta_ref[1 + k]
-                    r0 = g * pg
-                    # group g's pixel coords recomputed from its id
-                    # (Mosaic cannot dynamic-slice VALUES, only refs)
-                    q = jax.lax.broadcasted_iota(jnp.int32, (pg, 1), 0)
-                    cpx_ref[lo:hi, :] = (
-                        tile_x * tile_w + (g % gx_n) * bw
-                        + q % bw).astype(jnp.float32)
-                    cpy_ref[lo:hi, :] = (
-                        tile_y * tile_h + (g // gx_n) * bh
-                        + q // bw).astype(jnp.float32)
-                    cimg_ref[lo:hi, :] = img_ref[pl.ds(r0, pg), :]
-                    ctr_ref[lo:hi, :] = tr_ref[pl.ds(r0, pg), :]
-
-                @pl.when(k >= meta_ref[0])
-                def _(lo=lo, hi=hi):
-                    # Padding rows: zero coords keep the alpha math
-                    # finite; zero transmittance silences contributions
-                    # AND the saturation check (never written back).
-                    cpx_ref[lo:hi, :] = jnp.zeros((pg, 1), jnp.float32)
-                    cpy_ref[lo:hi, :] = jnp.zeros((pg, 1), jnp.float32)
-                    cimg_ref[lo:hi, :] = jnp.zeros((pg, 3), jnp.float32)
-                    ctr_ref[lo:hi, :] = jnp.zeros((pg, 1), jnp.float32)
-
-        cpx = cpx_ref[...]
-        cpy = cpy_ref[...]
-
-        def body_c(carry):
-            j, alive = carry
-            w, op = window_rows(j)
-            transmit = composite_rows(w, op, cimg_ref, ctr_ref, cpx, cpy,
-                                      COMPACT_GROUPS * pg)
-            sat = jnp.max(transmit) < alpha_min
-            return j + 1, jnp.where(sat, jnp.int32(0), alive)
-
-        def cond_c(carry):
-            j, alive = carry
-            return (j < nchunks) & (alive > 0)
-
-        j2, _ = jax.lax.while_loop(
-            cond_c, body_c,
-            (j1, jnp.where(do_compact, jnp.int32(1), jnp.int32(0))))
-
-        @pl.when(do_compact)
-        def _():
-            for k in range(COMPACT_GROUPS):
-                lo, hi = k * pg, (k + 1) * pg
-
-                @pl.when(k < meta_ref[0])
-                def _(k=k, lo=lo, hi=hi):
-                    g = meta_ref[1 + k]
-                    img_ref[pl.ds(g * pg, pg), :] = cimg_ref[lo:hi, :]
-                    tr_ref[pl.ds(g * pg, pg), :] = ctr_ref[lo:hi, :]
-
-        drain(j2)
-
-    if ng == 1:
-        light_loop()
-    else:
-        heavy = nchunks > heavy_chunks
-
-        @pl.when(jnp.logical_not(heavy))
-        def _():
-            light_loop()
-
-        @pl.when(heavy)
-        def _():
-            heavy_loop()
-
-    img = img_ref[...]
-    transmit = tr_ref[...]
-    for c in range(3):
-        chan = img[:, c:c + 1] + transmit * float(bg[c])
-        out_ref[c, 0] = jnp.clip(chan, 0.0, 1.0).reshape(bs0, bs1)
+    out_ref = out_refs[0]
+    rows, cols = pl.ds(y0, tile_h), pl.ds(x0, tile_w)
+    if train:
+        for c, v in enumerate((cr, cg, cb, lt)):
+            out_ref[rows, cols, c] = v
+        cut_ref = out_refs[1]
+        cut_ref[t] = jnp.minimum(b_end * chunk, n_pairs)
+        return
+    for c, v in enumerate((cr, cg, cb)):
+        out_ref[rows, cols, c] = jnp.clip(v + tr * float(bg[c]), 0.0, 1.0)
     if alpha_channel:
         # accumulated coverage (notebook semantics; see config.py) — NOT
         # the reference's last-fragment alpha byte
-        out_ref[3, 0] = jnp.clip(1.0 - transmit, 0.0, 1.0).reshape(bs0, bs1)
+        out_ref[rows, cols, 3] = jnp.clip(1.0 - tr, 0.0, 1.0)
 
 
-def rasterize_tiles(bins: TileBins, h: int, w: int, config: RenderConfig,
-                    *, interpret: bool = False,
-                    _raw: bool = False) -> jax.Array:
-    """Run the compositing kernel.  Returns float32 (H, W, 3) in [0, 1]
-    (or (H, W, 4) with config.alpha_channel: RGB + accumulated 1 - T).
+def _num_warps(config: RenderConfig) -> int:
+    """Warps per tile program: about one thread per 4 pixels, 4..8."""
+    return max(4, min(8, (config.tile_w * config.tile_h) // 128))
 
-    _raw: return the kernel's native (C, tiles, bs0, bs1) output without
-      the untile relayout — profiling hook (scripts/devtime.py --stage
-      raster) for splitting kernel cost from the XLA untile transpose."""
+
+def composite_tiles(bins: TileBins, config: RenderConfig, *,
+                    train: bool = False, sat_cut_log: float = -math.inf):
+    """Run the compositing kernel over every tile.
+
+    Returns the padded (nty*tile_h, ntx*tile_w, C) float32 image: render
+    mode gives the final RGB(A); ``train=True`` gives (raw C, log T) and,
+    as a second result, the (num_tiles,) int32 count of pairs each tile
+    walked before its exit.
+    """
     tw, th = config.tile_w, config.tile_h
-    bs0, bs1 = config.block_shape
+    ntx, nty = bins.tiles_x, bins.tiles_y
+    num_tiles = ntx * nty
+    nchan = 4 if (train or config.alpha_channel) else 3
+    kernel = functools.partial(
+        _composite_kernel, tile_w=tw, tile_h=th, tiles_x=ntx,
+        chunk=config.chunk, alpha_clamp=config.alpha_clamp,
+        alpha_min=config.alpha_min, bg=tuple(config.background),
+        skip_bbox=not math.isfinite(config.sigma_cutoff),
+        alpha_channel=config.alpha_channel, train=train,
+        sat_exit=bool(config.train_sat_exit), sat_cut_log=float(sat_cut_log))
+    out_shape = [jax.ShapeDtypeStruct((nty * th, ntx * tw, nchan),
+                                      jnp.float32)]
+    if train:
+        out_shape.append(jax.ShapeDtypeStruct((num_tiles,), jnp.int32))
+    out = pl.pallas_call(
+        kernel, grid=(num_tiles,), out_shape=out_shape,
+        name="splat_composite_train" if train else "splat_composite",
+        **kernel_route(_num_warps(config)),
+    )(bins.tile_start, bins.tile_end, bins.features)
+    return tuple(out) if train else out[0]
+
+
+def rasterize_tiles(bins: TileBins, h: int, w: int,
+                    config: RenderConfig) -> jax.Array:
+    """Composite the binned pairs into a float32 (H, W, 3) image in [0, 1]
+    (or (H, W, 4) with config.alpha_channel: RGB + accumulated 1 - T)."""
+    return composite_tiles(bins, config)[:h, :w]
+
+
+# --------------------------------------------------------------------------
+# Plain reference: the same walk in jax.numpy / lax
+# --------------------------------------------------------------------------
+
+PAIR_FIELDS = ("cx", "cy", "a2", "b2", "c2", "r", "g", "b", "op")
+
+
+def decode_pairs(bins: TileBins, config: RenderConfig) -> dict:
+    """Every sorted slot's decoded fields as (K,) float arrays."""
+    skip_bbox = not math.isfinite(config.sigma_cutoff)
+    return decode_features([bins.features[r] for r in range(FEATURE_DIM)],
+                           skip_bbox)
+
+
+def composite_reference(bins: TileBins, config: RenderConfig, *,
+                        train: bool = False, sat_cut_log: float = -math.inf,
+                        fields: dict | None = None,
+                        num_batches: int | None = None):
+    """The kernel's computation in plain jax.numpy, over all tiles at once.
+
+    Every tile walks its range in batches of ``config.chunk`` pairs (a
+    batch is one (tiles, pixels, chunk) array program; the transmittance
+    prefix inside a batch is a cumulative product) with the kernel's exit
+    rule checked after each batch.  Outputs match :func:`composite_tiles`.
+
+    ``fields`` replaces the decoded pair fields (:func:`decode_pairs`),
+    which makes the reference differentiable in them.  ``num_batches``
+    (static) walks exactly that many batches with ``lax.scan`` and a
+    rematerialised step, so ``jax.vjp`` works; None walks a
+    ``while_loop`` until every tile has exited.
+    """
+    tw, th = config.tile_w, config.tile_h
     ntx, nty = bins.tiles_x, bins.tiles_y
     num_tiles = ntx * nty
     chunk = config.chunk
-    p = tw * th
-    gy_n, gx_n, bh, bw = group_grid(tw, th, config.subtile_exit)
-    cg_pg = p // (gy_n * gx_n)   # rows per pixel group
-    # Phase-compaction scratch is only reachable when the tile decomposes
-    # into >1 pixel group (ng > 1); the default whole-tile path would
-    # otherwise still reserve ~4*p rows of dead VMEM per program.
-    cg_rows = COMPACT_GROUPS * cg_pg if gy_n * gx_n > 1 else 8
+    skip_bbox = not math.isfinite(config.sigma_cutoff)
+    if fields is None:
+        fields = decode_pairs(bins, config)
+    kcap = fields["cx"].shape[0]
+    s = bins.tile_start
+    e = bins.tile_end
+    n_t = e - s
+    nb_t = (n_t + chunk - 1) // chunk
+    tile = jnp.arange(num_tiles)
+    pix = jnp.arange(th * tw)
+    px = ((tile % ntx)[:, None] * tw + pix[None, :] % tw).astype(
+        jnp.float32)[..., None]                                  # (T, P, 1)
+    py = ((tile // ntx)[:, None] * th + pix[None, :] // tw).astype(
+        jnp.float32)[..., None]
+    lane = jnp.arange(chunk)
 
-    kernel = functools.partial(
-        _raster_kernel, chunk=chunk, tile_w=tw, tile_h=th, tiles_x=ntx,
-        bs0=bs0, bs1=bs1, alpha_clamp=config.alpha_clamp,
-        alpha_min=config.alpha_min, bg=tuple(config.background),
-        color_precision=(jax.lax.Precision.HIGHEST
-                         if config.exact_color_accum
-                         else jax.lax.Precision.DEFAULT),
-        gy_n=gy_n, gx_n=gx_n, bh=bh, bw=bw,
-        heavy_chunks=-(-config.subtile_heavy_pairs // chunk),
-        transmit_mxu=config.transmit_mxu,
-        skip_bbox=not math.isfinite(config.sigma_cutoff),
-        alpha_channel=config.alpha_channel)
-    nchan = 4 if config.alpha_channel else 3
+    def step(carry, b):
+        active, c, tr, lt, walked = carry
+        idx = s[:, None] + b * chunk + lane[None, :]              # (T, B)
+        valid = (idx < e[:, None]) & active[:, None]
+        idc = jnp.clip(idx, 0, kcap - 1)
+        g = {k: v[idc][:, None, :] for k, v in fields.items()}   # (T,1,B)
+        op = jnp.where(valid[:, None, :], g["op"], 0.0)
+        alpha, _, _, _, _, _ = pair_alpha(g, op, px, py, config.alpha_clamp,
+                                          config.alpha_min, skip_bbox)
+        one_minus = 1.0 - alpha                                   # (T,P,B)
+        incl = jnp.cumprod(one_minus, axis=-1)
+        excl = jnp.concatenate([jnp.ones_like(incl[..., :1]),
+                                incl[..., :-1]], axis=-1)
+        wgt = alpha * excl * tr[..., None]
+        col = jnp.concatenate([g["r"], g["g"], g["b"]], axis=1)  # (T,3,B)
+        c = c + jnp.einsum("tpb,tcb->tpc", wgt, col,
+                           precision=jax.lax.Precision.HIGHEST)
+        tr = tr * incl[..., -1]
+        if train:
+            lt = lt + jnp.sum(log_one_minus(alpha, config.alpha_clamp),
+                              axis=-1)
+        walked = walked + jnp.where(
+            active, jnp.clip(n_t - b * chunk, 0, chunk), 0)
+        sat = _exit_now(functools.partial(jnp.max, axis=-1), tr, lt,
+                        train=train,
+                        sat_exit=bool(config.train_sat_exit),
+                        alpha_min=config.alpha_min, sat_cut_log=sat_cut_log)
+        active = active & (b + 1 < nb_t) & jnp.logical_not(sat)
+        return (active, c, tr, lt, walked), None
 
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(num_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=pl.BlockSpec((nchan, 1, bs0, bs1),
-                               lambda t, *_: (0, t, 0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((NBUF, FEATURE_DIM, chunk), jnp.int32),
-            pltpu.SemaphoreType.DMA((NBUF,)),
-            pltpu.VMEM((p, 3), jnp.float32),
-            pltpu.VMEM((p, 1), jnp.float32),
-            pltpu.SMEM((gy_n * gx_n,), jnp.int32),
-            pltpu.VMEM((cg_rows, 1), jnp.float32),
-            pltpu.VMEM((cg_rows, 1), jnp.float32),
-            pltpu.VMEM((cg_rows, 3), jnp.float32),
-            pltpu.VMEM((cg_rows, 1), jnp.float32),
-            pltpu.SMEM((1 + COMPACT_GROUPS,), jnp.int32),
-        ],
-    )
+    init = (nb_t > 0,
+            jnp.zeros((num_tiles, th * tw, 3), jnp.float32),
+            jnp.ones((num_tiles, th * tw), jnp.float32),
+            jnp.zeros((num_tiles, th * tw), jnp.float32),
+            jnp.zeros((num_tiles,), jnp.int32))
+    if num_batches is None:
+        def body(carry):
+            b, state = carry
+            return b + 1, step(state, b)[0]
 
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((nchan, num_tiles, bs0, bs1),
-                                       jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(bins.tile_start, bins.tile_end, bins.features)
-    if _raw:
-        return out
+        _, (_, c, tr, lt, walked) = jax.lax.while_loop(
+            lambda carry: jnp.any(carry[1][0]), body, (jnp.int32(0), init))
+    else:
+        (_, c, tr, lt, walked), _ = jax.lax.scan(
+            jax.checkpoint(step), init,
+            jnp.arange(num_batches, dtype=jnp.int32))
 
-    # untile: (C, T, bs0, bs1) -> (H, W, C).  Linear pixel index
-    # r = sublane*bs1 + lane decomposes per the kernel's group mapping:
-    # (g, q) = (r // pg, r % pg), pixel = (gy*bh + q//bw, gx*bw + q%bw).
-    img = out.reshape(nchan, nty, ntx, gy_n, gx_n, bh, bw)
-    img = img.transpose(1, 3, 5, 2, 4, 6, 0).reshape(
-        nty * th, ntx * tw, nchan)
-    return img[:h, :w]
+    def untile(x):                                   # (T, P, C) -> image
+        nc = x.shape[-1]
+        x = x.reshape(nty, ntx, th, tw, nc).transpose(0, 2, 1, 3, 4)
+        return x.reshape(nty * th, ntx * tw, nc)
+
+    if train:
+        return untile(jnp.concatenate([c, lt[..., None]], axis=-1)), walked
+    bg = jnp.asarray(config.background, jnp.float32)
+    img = jnp.clip(c + tr[..., None] * bg, 0.0, 1.0)
+    if config.alpha_channel:
+        img = jnp.concatenate(
+            [img, jnp.clip(1.0 - tr, 0.0, 1.0)[..., None]], axis=-1)
+    return untile(img)

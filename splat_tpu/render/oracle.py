@@ -2,7 +2,7 @@
 
 Independent re-implementation of the reference's per-pixel semantics
 (notebook cell 3 ``plot_opacity`` / Rust fragment+blend at
-src/pipelines.rs:127-168) used to validate the TPU renderers.  Deliberately
+src/pipelines.rs:127-168) used to validate the device renderers.  Deliberately
 written in plain double-loop-free NumPy, sharing **no** code with the JAX
 path, so agreement is meaningful.
 

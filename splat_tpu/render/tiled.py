@@ -1,7 +1,8 @@
 """Tiled renderer: the production path (SURVEY §7 step 5).
 
 frustum cull -> tile binning (binning.py) -> Pallas compositing kernel
-(kernels.py).  Everything is one jitted function of (scene, camera).
+(kernels.py; route.py picks how it is compiled).  Everything is one
+jitted function of (scene, camera).
 """
 
 from __future__ import annotations
@@ -17,23 +18,16 @@ from splat_tpu.render.kernels import rasterize_tiles
 
 
 def render_tiled(scene, camera: Camera, config: RenderConfig | None = None,
-                 *, interpret: bool | None = None,
-                 return_stats: bool = False):
+                 *, return_stats: bool = False):
     """Render to float32 (H, W, 3) — or (H, W, 4) RGBA with
     config.alpha_channel.  Jit-friendly; camera pose is traced.
 
-    interpret: run the Pallas kernel in interpreter mode (None = auto: on
-      for the CPU backend, off on TPU).
     return_stats: additionally return a dict with pair counts / overflow /
       tile occupancy (all device scalars; cheap).
     """
     config = config or RenderConfig()
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
     ss = config.supersample
     if ss > 1:  # supersampled AA: render hi-res, box-filter at the end
-        import dataclasses
-
         camera = camera.scaled(ss)
     h, w = camera.h, camera.w
     if scene.num_gaussians == 0:  # static: binning has no N=0 shape
@@ -49,9 +43,13 @@ def render_tiled(scene, camera: Camera, config: RenderConfig | None = None,
                          "max_tile_pairs": z,
                          "mean_tile_pairs": jnp.float32(0.0)}
         return img
-    proj = project_gaussians(scene, camera, config)
-    bins = build_tile_bins(proj, h, w, config, interpret=interpret)
-    img = rasterize_tiles(bins, h, w, config, interpret=interpret)
+    # named scopes label the frame's layers in profiler traces
+    with jax.named_scope("project"):
+        proj = project_gaussians(scene, camera, config)
+    with jax.named_scope("bin"):
+        bins = build_tile_bins(proj, h, w, config)
+    with jax.named_scope("composite"):
+        img = rasterize_tiles(bins, h, w, config)
     if ss > 1:
         from splat_tpu.utils.image import box_downsample
 

@@ -2,9 +2,9 @@
 
 The reference keeps two copies of the model: an AoS ``Gaussian`` struct
 (reference: src/gaussians.rs:31-38) and a column-major SoA ``GaussianList``
-(src/gaussians.rs:408-416).  On TPU only the SoA layout makes sense — each
-field is one HBM-resident array the vector units stream over — so that is the
-single data model here.
+(src/gaussians.rs:408-416).  On an accelerator only the SoA layout makes
+sense — each field is one device-resident array the kernels stream over — so
+that is the single data model here.
 
 All activation functions (exp on scales, sigmoid on opacity, quaternion
 normalization — reference: src/gaussians.rs:265-268, notes/util_gau.py:98-105)
@@ -63,8 +63,7 @@ class GaussianScene:
         Host-built scenes keep NumPy leaves (JAX transfers them on first
         dispatch; use :meth:`to_device` to pin them in HBM for render
         loops).  Device-array inputs are kept as-is — they are never pulled
-        back to the host here, since fetching raw (never-computed) buffers
-        is pathologically slow on remote-attached TPU backends.
+        back to the host here.
         """
         on_device = any(
             isinstance(a, jax.Array) for a in (means, quats, scales,
@@ -133,8 +132,8 @@ class GaussianScene:
         but SHARDING is not: the a2a slab routing's per-(src, dst)
         capacity assumes shards are spatially uncorrelated, and scenes
         stored in spatial order (common in pretrained .ply exports) can
-        concentrate a whole shard into one slab (measured on the surface
-        fixture — scripts/a2a_crossover.py).  Shuffle once before
+        concentrate a whole shard into one slab (the surface fixture
+        does).  Shuffle once before
         sharding to restore the i.i.d. assumption.
         """
         perm = np.random.default_rng(seed).permutation(self.num_gaussians)
@@ -149,9 +148,8 @@ class GaussianScene:
         """Transpose to the feature-major DeviceScene layout and pin it.
 
         The hot render path wants every per-gaussian quantity as one dense
-        (N,) HBM stream; (N, 3)/(N, 4)/(N, 16, 3) arrays force strided
-        column reads and tiled-layout padding on TPU (the round-2 frame
-        spent ~6.3 ms of its 6.7 ms projection stage on exactly that).
+        (N,) device stream; (N, 3)/(N, 4)/(N, 16, 3) arrays force strided
+        column reads.
         The transpose happens ONCE here, on the host when the leaves are
         NumPy (contiguous memcpy per component), then one device_put.
         The default-device result is memoized on the (immutable) scene so
@@ -193,9 +191,9 @@ class GaussianScene:
 class DeviceScene:
     """Feature-major scene: one dense (N,) device array per component.
 
-    The TPU-native twin of GaussianScene for render hot loops — every
-    projection input is a contiguous (N,) stream (dense (8, 128)-tiled
-    layout, no padding, no strided column slices).  Produced by
+    The device twin of GaussianScene for render hot loops — every
+    projection input is a contiguous (N,) stream (no strided column
+    slices).  Produced by
     :meth:`GaussianScene.pack_device`; consumed structurally by
     ``ops.projection._scene_cols``.  ``sh`` is a 48-tuple of (N,) leaves,
     coefficient-major with interleaved RGB: ``sh[3 * k + c]`` is

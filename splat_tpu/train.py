@@ -2,7 +2,7 @@
 
 The reference is feed-forward inference only — no training, autograd, or
 optimizer anywhere (SURVEY §1: "renderer, not trainer").  Differentiability
-is the TPU-native dividend of the functional design: :func:`render_dense`
+is the dividend of the functional design: :func:`render_dense`
 is pure JAX, so ``jax.grad`` flows from pixels back to every scene
 parameter.  This module packages that into the standard gaussian-splatting
 optimization loop:
@@ -346,7 +346,7 @@ def densify_and_prune(raw: RawParams, grad_mean, *,
     here the world-space mean-gradient norm plays that role — same
     signal up to the projection scale.)
 
-    TPU-first shape discipline: the result is padded up to a multiple
+    Static-shape discipline: the result is padded up to a multiple
     of ``pad_multiple`` with DEAD splats (opacity ~3e-7 — culled by
     visibility, zero gradients, one sentinel binning slot each), so
     repeated rounds hit a few bucketed compile shapes instead of one
@@ -665,8 +665,8 @@ def fit(scene: GaussianScene, cameras: Camera, targets,
 
     def _capacity_margin_check(dmax_val, n):
         """Host-side per-segment-boundary capacity check against the
-        IN-SEGMENT measured demand (ADVICE r4: the 5% up-front margin is
-        a heuristic; footprints drift during optimization)."""
+        IN-SEGMENT measured demand (the 5% up-front margin is a
+        heuristic; footprints drift during optimization)."""
         nonlocal config
         k_cap = int(config.max_dup_factor * n)
         if dmax_val > k_cap:

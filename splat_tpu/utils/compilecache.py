@@ -1,60 +1,45 @@
 """Persistent XLA compilation cache.
 
-First compile of the 1080p tiled pipeline costs ~90 s on the remote TPU
-(the reference's `cargo run` starts instantly — src/main.rs:15-29 — so
-cold-start latency is the worst user-facing number we have).  JAX can
-persist compiled executables keyed by an HLO hash; wiring it means the
-second process start skips straight to execution.
+The first compile of the 1080p tiled pipeline takes tens of seconds;
+JAX can persist compiled executables keyed by an HLO hash, so a second
+process start skips straight to execution.  Every user-facing entry
+point (CLI, bench, viewer, chip_smoke.py) calls
+:func:`enable_persistent_cache` before building jitted functions.
 
-Every user-facing entry point (CLI, bench, viewer, devtime) calls
-:func:`enable_persistent_cache` before building jitted functions.  The
-cache location, in priority order:
+Where the cache lives:
 
-1. ``SPLAT_COMPILE_CACHE`` env var (empty string disables caching);
-2. ``~/.cache/splat_tpu/xla``.
-
-Safe to call multiple times; only the first call wins (matching JAX's
-own semantics — the cache dir is read once at first use).
+1. ``JAX_COMPILATION_CACHE_DIR``, when set: JAX reads it itself and this
+   module sets no other directory;
+2. otherwise ``<checkout>/.jax_cache`` — a fixed path, because the path
+   is part of what makes a later run find the entries again
+   (``.gitignore`` lists it).
 """
 
 from __future__ import annotations
 
 import os
 
-_enabled: str | None = None
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".jax_cache")
 
 
-def enable_persistent_cache(path: str | None = None) -> str | None:
-    """Point JAX's persistent compilation cache at a durable directory.
+def enable_persistent_cache() -> str:
+    """Turn on JAX's persistent compilation cache; returns its directory.
 
-    Returns the cache dir in use, or None when disabled
-    (``SPLAT_COMPILE_CACHE=""``).
+    Safe to call more than once.
     """
-    global _enabled
-    if _enabled is not None:
-        return _enabled or None
-    env = os.environ.get("SPLAT_COMPILE_CACHE")
-    if env is not None:
-        path = env
-    if path is None:
-        path = os.path.join(os.path.expanduser("~"), ".cache", "splat_tpu",
-                            "xla")
-    if not path:  # explicitly disabled
-        _enabled = ""
-        return None
-    try:
-        os.makedirs(path, exist_ok=True)
-        import jax
+    import jax
 
+    path = os.environ.get(ENV_VAR)
+    if not path:
+        path = DEFAULT_DIR
         jax.config.update("jax_compilation_cache_dir", path)
-        # The pipeline's kernels are exactly the expensive-to-compile,
-        # cheap-to-store artifacts the cache exists for; cache everything
-        # that takes more than a second so even the small helper jits
-        # (pair_stats, orbit steps) warm-start.
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    except Exception:  # cache is an optimization — never fail the render
-        _enabled = ""
-        return None
-    _enabled = path
+    # The pipeline's kernels are exactly the expensive-to-compile,
+    # cheap-to-store artifacts the cache exists for; cache everything
+    # that takes more than a second so even the small helper jits
+    # (pair_stats, orbit steps) warm-start.
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
     return path

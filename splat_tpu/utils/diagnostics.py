@@ -26,26 +26,16 @@ import numpy as np
 def profile_trace(logdir: str) -> Iterator[None]:
     """Capture a device profile of the enclosed block into ``logdir``.
 
-    View with TensorBoard's profile plugin.  Falls back to a no-op (with a
-    warning) if the backend doesn't support profiling (e.g. some
-    remote-attached configurations).
+    View with TensorBoard's profile plugin, or read the ``.xplane.pb``
+    with ``jax.profiler.ProfileData``.  A profiler failure raises.
     """
     import jax
 
-    try:
-        jax.profiler.start_trace(logdir)
-        started = True
-    except Exception as e:  # pragma: no cover - backend dependent
-        print(f"[splat_tpu] profiling unavailable: {e}")
-        started = False
+    jax.profiler.start_trace(logdir)
     try:
         yield
     finally:
-        if started:
-            try:
-                jax.profiler.stop_trace()
-            except Exception as e:  # pragma: no cover
-                print(f"[splat_tpu] stop_trace failed: {e}")
+        jax.profiler.stop_trace()
 
 
 def scene_health(scene) -> dict:
@@ -98,9 +88,8 @@ def frame_report(scene, camera, config=None) -> dict:
 class StageTimer:
     """Host-side stage timing with an explicit device fence per stage.
 
-    Useful for coarse breakdowns; for true per-op device timing use
-    :func:`profile_trace` (host timing on remote-attached backends includes
-    dispatch latency — see scripts/devtime.py for the honest protocol).
+    Useful for coarse breakdowns; for per-op device timing use
+    :func:`profile_trace`.
     """
 
     def __init__(self):

@@ -1,8 +1,9 @@
 """Image utilities: dependency-free PNG write/read and PSNR.
 
 Replaces the reference's minifb window blit (src/main.rs:79) as the output
-path — on a TPU host the deliverable is a u8 image back from HBM, written to
-disk.  PNG codec is pure Python (zlib + struct), enough for RGB8 frames.
+path — on a headless accelerator host the deliverable is a u8 image back
+from device memory, written to disk.  PNG codec is pure Python (zlib +
+struct), enough for RGB8 frames.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Geometric debug overlays: conic outlines + bounding boxes.
 
-The TPU twin of the notebook's geometric validation tool (reference:
+The device twin of the notebook's geometric validation tool (reference:
 notes/00_Gaussian_Projection.ipynb cell 2 ``plot_conics_and_bbs``), which
 overlays 1-sigma conic contours and 3-sigma bounding boxes in screen space to
 validate projection/conic/bbox math independently of blending.  Implemented

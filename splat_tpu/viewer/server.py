@@ -1,7 +1,7 @@
 """Interactive viewer: a local HTTP server streaming rendered frames.
 
-The TPU-native replacement for the reference's minifb window + arrow-key
-loop (reference: src/main.rs:41-80).  A TPU host is headless, so instead of
+The replacement for the reference's minifb window + arrow-key loop
+(reference: src/main.rs:41-80).  An accelerator host is headless, so instead of
 an OS window the viewer serves a small HTML page; the browser sends pose
 updates (arrow keys = +-10 degrees yaw/pitch like the reference, R = reset,
 drag to orbit, wheel to dolly) and fetches re-rendered PNG frames.  Like the
@@ -151,7 +151,7 @@ def serve(scene, camera, config=None, *, host: str = "127.0.0.1",
     fns: dict[tuple, object] = {}
     # Live resolution ladder ('-'/'+' in the browser): h/w are static
     # pytree metadata (a resize is a new compiled pipeline — PARITY.md
-    # row 7's deliberate TPU-first trade), so the viewer exposes a small
+    # row 7's deliberate static-shape trade), so the viewer exposes a small
     # FIXED set of scales, each compiled once on first use and remembered
     # by the persistent compilation cache across restarts.  This covers
     # the reference's Camera::update_resolution (src/camera.rs:76-82).

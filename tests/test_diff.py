@@ -7,8 +7,8 @@ Validation strategy (three tiers, strongest first):
    with the custom VJP to machine precision — this pins the backward
    kernel's math exactly, including the u16/radius packing semantics.
 2. **Forward parity**: render_tiled_diff is bit-identical to the
-   production render_tiled (light path; the diff kernel only removes the
-   saturation early-exit and adds the logT plane).
+   production render_tiled (one kernel body: the training mode only
+   changes the exit rule and adds the logT plane).
 3. **Dense-path agreement**: cosine similarity vs jax.grad through
    render_dense (forwards differ by feature quantization, so elementwise
    equality is not expected; direction must agree).
@@ -93,7 +93,7 @@ class TestForwardParity:
         scene = _jscene(300, 1)
         cam = Camera.create(h=64, w=96, position=(0.0, 0.0, 4.0))
         cfg = RenderConfig(max_dup_factor=8.0)
-        a = np.asarray(render_tiled(scene, cam, cfg, interpret=True))
+        a = np.asarray(render_tiled(scene, cam, cfg))
         b = np.asarray(render_tiled_diff(scene, cam, cfg))
         np.testing.assert_array_equal(a, b)
 
@@ -102,7 +102,7 @@ class TestForwardParity:
         cam = Camera.create(h=32, w=64, position=(0.0, 0.0, 4.0))
         cfg = RenderConfig(max_dup_factor=8.0, alpha_channel=True,
                            supersample=2)
-        a = np.asarray(render_tiled(scene, cam, cfg, interpret=True))
+        a = np.asarray(render_tiled(scene, cam, cfg))
         b = np.asarray(render_tiled_diff(scene, cam, cfg))
         assert b.shape == (32, 64, 4)
         np.testing.assert_allclose(a, b, atol=1e-6)
@@ -119,8 +119,7 @@ class TestForwardParity:
         cam = Camera.create(h=32, w=32, position=(0.0, 0.0, 4.0))
         for bad in (RenderConfig(render_mode="depth"),  # needs a range
                     RenderConfig(binning_key="rank"),
-                    RenderConfig(cull_pairs=True),
-                    RenderConfig(transmit_mxu=False)):
+                    RenderConfig(cull_pairs=True)):
             with pytest.raises(NotImplementedError):
                 render_tiled_diff(scene, cam, bad)
         # depth mode WITH an explicit range is supported (round 5)
@@ -138,7 +137,7 @@ class TestBackwardExact:
         cam = Camera.create(h=32, w=64, position=(0.0, 0.0, 4.0))
         cfg = RenderConfig(max_dup_factor=16.0)
         proj0 = project_gaussians(scene, cam, cfg)
-        bins0 = build_tile_bins(proj0, cam.h, cam.w, cfg, interpret=True)
+        bins0 = build_tile_bins(proj0, cam.h, cam.w, cfg)
         ranks = np.asarray(bins0.ranks)
         ts, te = np.asarray(bins0.tile_start), np.asarray(bins0.tile_end)
 
@@ -194,24 +193,20 @@ class TestScatterImpls:
         cam = Camera.create(h=64, w=96, position=(0.0, 0.0, 4.0))
         cfg = RenderConfig(max_dup_factor=dup)
         proj = project_gaussians(scene, cam, cfg)
-        bins = build_tile_bins(proj, cam.h, cam.w, cfg, interpret=True)
+        bins = build_tile_bins(proj, cam.h, cam.w, cfg)
         rng = np.random.default_rng(seed)
         g_c = jnp.asarray(rng.normal(size=(cam.h, cam.w, 3))
                           .astype(np.float32))
         g_lt = jnp.asarray(rng.normal(size=(cam.h, cam.w))
                            .astype(np.float32))
-        _, lt, cut = D._fwd_raster(bins, cam.h, cam.w, cfg, True)
-        grads, pad_base, base_t = D._bwd_raster(
-            bins, g_c, g_lt, lt, cut, cam.h, cam.w, cfg, True)
-        return D, scene, cfg, proj, bins, grads, pad_base, base_t
+        planes, cut = D._fwd_raster(bins, cfg)
+        grads = D._bwd_raster(bins, g_c, g_lt, planes[..., 3], cut, cfg)
+        return D, scene, cfg, proj, bins, grads
 
     def _compare(self, n, seed, dup):
-        D, scene, cfg, proj, bins, grads, pad_base, base_t = \
-            self._pair_grads(n, seed, dup)
-        ref = np.asarray(D._scatter_pair_grads_xla(
-            grads, pad_base, base_t, bins, n, cfg.chunk))
-        fast = np.asarray(D._scatter_pair_grads(
-            grads, pad_base, base_t, bins, proj, n, cfg))
+        D, scene, cfg, proj, bins, grads = self._pair_grads(n, seed, dup)
+        ref = np.asarray(D._scatter_pair_grads_xla(grads, bins, n))
+        fast = np.asarray(D._scatter_pair_grads(grads, bins, proj, n, cfg))
         scale = np.abs(ref).max() + 1e-20
         assert np.abs(fast - ref).max() / scale < 1e-6, \
             f"rel {np.abs(fast - ref).max() / scale:.2e}"
@@ -224,37 +219,20 @@ class TestScatterImpls:
     def test_matches_under_capacity_truncation(self):
         # a tight capacity drops trailing pre-sort slots; the offsets
         # must reproduce exactly which pairs survived
-        # k_cap rounds up to the 4096-slot expansion grain, so force
-        # enough pairs to overflow the smallest possible capacity
         bins = self._compare(4000, 11, 1.0)
         assert int(bins.overflow) > 0  # truncation actually exercised
 
-    def test_kg_row_marks_padding(self):
-        from splat_tpu.render import diff as D
-
-        _, _, _, _, bins, grads, pad_base, _ = self._pair_grads(
-            200, 5, 8.0)
-        kg = np.asarray(grads[D.GRAD_KG])
-        nwritten = int(pad_base[-1])
-        written = kg[:nwritten]
-        valid = written >= 0
-        # valid slots carry exact integer GAUSSIAN ids within range
-        assert np.all(written[valid] == np.round(written[valid]))
-        assert written[valid].max() < 200          # fixture N
-        assert np.all(written[~valid] == -1.0)
-        # and they agree with the binning sort's own payload
-        s_t = np.asarray(bins.tile_start)
-        e_t = np.asarray(bins.tile_end)
-        base_t = (s_t // 128) * 128
-        nch = np.maximum(
-            (e_t - base_t + 127) // 128, 0)
-        pb = np.asarray(pad_base)
-        ranks = np.asarray(bins.ranks)
-        for t in range(len(s_t)):
-            for p in range(pb[t], pb[t] + nch[t] * 128):
-                k = base_t[t] + (p - pb[t])
-                if s_t[t] <= k < e_t[t]:
-                    assert written[p] == ranks[k], (t, p, k)
+    def test_pair_grads_only_in_walked_slots(self):
+        """Per-pair gradients land at the pair's own sorted slot: slots
+        past the last real pair (fakes, unused capacity) stay exactly
+        zero, and the walked pairs carry nonzero gradients."""
+        _, _, _, _, bins, grads = self._pair_grads(200, 5, 8.0)
+        grads = np.asarray(grads)
+        n_real = int(np.asarray(bins.tile_end)[-1])
+        assert n_real == int(bins.num_pairs)
+        assert np.all(grads[:, n_real:] == 0.0)
+        assert np.abs(grads[:, :n_real]).max() > 0.0
+        assert np.isfinite(grads).all()
 
 
 class TestSaturationCut:
@@ -280,15 +258,12 @@ class TestSaturationCut:
         cam = Camera.create(h=64, w=96, position=(0.0, 0.0, 4.0))
         cfg = RenderConfig(max_dup_factor=24.0, alpha_channel=True)
         proj = project_gaussians(scene, cam, cfg)
-        bins = build_tile_bins(proj, cam.h, cam.w, cfg, interpret=True)
-        _, _, cut = D._fwd_raster(bins, cam.h, cam.w, cfg, True)
-        base = (np.asarray(bins.tile_start) // 128) * 128
-        nch = np.maximum(
-            (np.asarray(bins.tile_end) - base + cfg.chunk - 1)
-            // cfg.chunk, 0)
+        bins = build_tile_bins(proj, cam.h, cam.w, cfg)
+        _, cut = D._fwd_raster(bins, cfg)
+        npairs = np.asarray(bins.tile_end) - np.asarray(bins.tile_start)
         cut = np.asarray(cut)
-        assert (cut < nch).any(), "fixture failed to engage the cut"
-        assert (cut <= nch).all()
+        assert (cut < npairs).any(), "fixture failed to engage the cut"
+        assert (cut <= npairs).all()
 
         tgt = jnp.full((64, 96, 4), 0.3)
         loss = lambda s: jnp.mean(
@@ -331,10 +306,9 @@ class TestSaturationCut:
         cfg_exit = dataclasses.replace(cfg_full, train_sat_exit=True)
 
         proj = project_gaussians(scene, cam, cfg_exit)
-        bins = build_tile_bins(proj, cam.h, cam.w, cfg_exit,
-                               interpret=True)
-        _, _, cut_x = D._fwd_raster(bins, cam.h, cam.w, cfg_exit, True)
-        _, _, cut_f = D._fwd_raster(bins, cam.h, cam.w, cfg_full, True)
+        bins = build_tile_bins(proj, cam.h, cam.w, cfg_exit)
+        _, cut_x = D._fwd_raster(bins, cfg_exit)
+        _, cut_f = D._fwd_raster(bins, cfg_full)
         cut_x, cut_f = np.asarray(cut_x), np.asarray(cut_f)
         assert (cut_x < cut_f).any(), \
             "approx exit should cut earlier than the exact one"
@@ -365,13 +339,10 @@ class TestSaturationCut:
         cam = Camera.create(h=64, w=96, position=(0.0, 0.0, 4.0))
         cfg = RenderConfig(max_dup_factor=8.0)
         proj = project_gaussians(scene, cam, cfg)
-        bins = build_tile_bins(proj, cam.h, cam.w, cfg, interpret=True)
-        _, _, cut = D._fwd_raster(bins, cam.h, cam.w, cfg, True)
-        base = (np.asarray(bins.tile_start) // 128) * 128
-        nch = np.maximum(
-            (np.asarray(bins.tile_end) - base + cfg.chunk - 1)
-            // cfg.chunk, 0)
-        np.testing.assert_array_equal(np.asarray(cut), nch)
+        bins = build_tile_bins(proj, cam.h, cam.w, cfg)
+        _, cut = D._fwd_raster(bins, cfg)
+        npairs = np.asarray(bins.tile_end) - np.asarray(bins.tile_start)
+        np.testing.assert_array_equal(np.asarray(cut), npairs)
 
 
 class TestDenseAgreement:
@@ -502,7 +473,7 @@ class TestHeavyOcclusion:
         cam = Camera.create(h=32, w=32, position=(0.0, 0.0, 3.0))
         cfg = RenderConfig(max_dup_factor=float(2 * 32 * 32))
         proj0 = project_gaussians(scene, cam, cfg)
-        bins0 = build_tile_bins(proj0, cam.h, cam.w, cfg, interpret=True)
+        bins0 = build_tile_bins(proj0, cam.h, cam.w, cfg)
         ranks = np.asarray(bins0.ranks)
         ts, te = np.asarray(bins0.tile_start), np.asarray(bins0.tile_end)
 

@@ -6,8 +6,6 @@ notes/screenshot.png as the expected image), but that .ply is gitignored
 in the reference repo.  tests/data/surface_5k.ply is the stand-in: 5k
 splats on blobby surfaces with trained-scene statistics (tangent
 -anisotropic scales, high opacity), written by save_ply and committed.
-devtime --psnr runs the same scene at 800x600 through the COMPILED
-Mosaic kernel on the real chip (98.4 dB recorded in BASELINE.md).
 """
 
 import os
@@ -36,11 +34,11 @@ def test_fixture_roundtrip_stats():
 
 def test_fixture_full_scene_parity_tiled():
     """Ladder 2 shape: full scene, single frame, 4:3 viewport, tiled path
-    (interpret mode on CPU; the on-chip twin is devtime --psnr)."""
+    (interpret mode on CPU)."""
     scene = load_ply(FIXTURE, center=False)
     cam = Camera.create(h=300, w=400, position=(0.0, -1.0, 3.5))
     config = RenderConfig()
-    img = np.asarray(render_tiled(scene, cam, config, interpret=True))
+    img = np.asarray(render_tiled(scene, cam, config))
     gold = render_oracle(scene, cam, config)
     p = psnr(img, gold)
     assert p >= 45.0, f"fixture-scene PSNR {p:.2f} dB"

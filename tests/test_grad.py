@@ -1,6 +1,6 @@
 """Differentiable rendering through the dense path.
 
-The reference is a feed-forward viewer; differentiability is a TPU-native
+The reference is a feed-forward viewer; differentiability is an
 extension that falls out of the functional design: ``render_dense`` is
 pure JAX (sort + gather + masked compositing are all differentiable or
 piecewise-constant), so ``jax.grad`` flows from pixels back to every

@@ -1,6 +1,5 @@
 """Golden gates on the committed GROWN-scene sidecar
-(tests/data/grown_scene.json, produced by scripts/make_grown_scene.py
-on the TPU).
+(tests/data/grown_scene.json, produced by scripts/make_grown_scene.py).
 
 The fitted_20k artifact (test_fitted_scene.py) proves distillation at
 fixed capacity; this sidecar proves the other half of the 3DGS recipe
@@ -53,7 +52,7 @@ def test_growth_came_from_densification(side):
 
 
 def test_held_out_quality_gate(side):
-    """>= 30 dB at poses the optimizer never rendered (VERDICT r4 #6)."""
+    """>= 30 dB at poses the optimizer never rendered (ROADMAP Reach 7)."""
     assert side["held_out_mean_db"] >= 30.0
     assert all(p >= 27.0 for p in side["held_out_psnr_db"])
 

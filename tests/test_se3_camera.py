@@ -8,7 +8,7 @@ engine to those poses; these tests pin:
 * protocol parity — an orbit pose converted via to_se3() renders the
   same image on every path;
 * oracle parity at a NON-orbit pose (rolled up-vector, fx != fy,
-  off-center principal point) — the VERDICT r4 "done" criterion;
+  off-center principal point);
 * the COLMAP convention flip (y-down/z-forward -> look_at frame);
 * training against SE(3)-posed targets end to end;
 * the camera JSON spec round-trip (cli._load_camera_path).

@@ -1,7 +1,7 @@
 """Tests for splat_tpu.train — the differentiable fitting module.
 
 The reference has no training path at all (SURVEY §1); these tests pin the
-TPU-native extension: raw/activated round-trips, multi-view photometric
+extension: raw/activated round-trips, multi-view photometric
 fitting, and recovery of a perturbed scene.
 """
 
@@ -640,7 +640,7 @@ def test_fit_densify_reaudits_tiled_capacity():
     cam0 = jax.tree.map(lambda a: a[0], cams,
                         is_leaf=lambda a: hasattr(a, "shape"))
     targets = jnp.zeros((1, 64, 64, 3))
-    config = RenderConfig(max_dup_factor=2.0, sh_degree=0)
+    config = RenderConfig(max_dup_factor=2.0, sh_degree=0, tile_px=32)
     # Author the capacity arithmetic from the binning stage itself, not
     # hand geometry: the INITIAL audit must pass (demand*1.05 <= 2.0*64)
     # and the POST-PRUNE demand (16 survivors) must exceed 2.0*16.
@@ -698,7 +698,7 @@ def test_fit_tiled_detects_midsegment_capacity_drift():
                             num_frames=1)
     # white target + huge scale lr: footprints blow up within steps
     targets = jnp.ones((1, 64, 64, 3))
-    config = RenderConfig(max_dup_factor=1.25, sh_degree=0)
+    config = RenderConfig(max_dup_factor=1.25, sh_degree=0, tile_px=32)
     with pytest.warns(UserWarning, match="mid-segment"):
         fit(scene, cams, targets, steps=8, method="tiled", lr=0.5,
             lr_scales={"log_scales": 10.0}, config=config)
